@@ -5,18 +5,32 @@
 Phases, one output line each; any failure exits non-zero:
   1. device: a CUDA device is required (exit 1 without one); prints its
      name and ``nvidia-smi``'s name and power limit;
-  2. build: compiles every kernel of the serving path from ``csrc/`` with
-     nvcc (in parallel) and prints the ptxas resource report;
+  2. build: compiles every kernel of the serving and training paths from
+     ``csrc/`` with nvcc (in parallel) and prints the ptxas resource report;
   3. parity at 100k Gaussians, 800x800, SH3 (BASELINE config 2): the
      emission kernel against its plain version (bit-equal), the CUDA
      bin_and_sort against the CPU one on the same preprocessed Gaussians
      (bit-equal), the forward-blend kernel against its plain version
-     (image atol 3e-5 rtol 1e-4, transmittance atol 3e-5);
-  4. garden serving: 1.4M Gaussians at 1920x1080, SH3, tight radius,
+     (image atol 3e-5 rtol 1e-4, transmittance atol 3e-5), the
+     backward-blend kernel against its plain version (autograd of the plain
+     blend) on seeded cotangents of the image and of T (each of the 9
+     gradient rows normalised by its largest magnitude, atol 1e-4), and the
+     segment reduce against its plain version (atol 1e-4);
+  4. grad_6k: the gradients of all five parameters through the whole CUDA
+     pipeline against the plain pipeline on the CPU, same inputs, at 6k
+     Gaussians, 128x128, SH3 (normalised atol 1e-4);
+  5. garden serving: 1.4M Gaussians at 1920x1080, SH3, tight radius,
      capacity from a preprocess probe x1.05; ``render_auto`` on a 3-camera
      orbit with the launch counters reset just before and read just after;
-     then each kernel against its plain version at the garden shapes, timed
-     with CUDA events beside its bound and the plain version's time.
+  6. garden training: ``train_step`` at the same shapes against renders of
+     a second random scene, one warm-up step and three timed steps with the
+     regrow retry, counters reset just before and read just after; then one
+     step split into forward, backward and Adam;
+  7. kernels at the garden shapes: each against its plain version, timed
+     with CUDA events beside its bound, the plain version's time and, where
+     one PyTorch call computes the same function, that call's time;
+  8. trainer rehearsal: ``python -m tpusplat_torch.trainer --synthetic``
+     for 30 steps at 128x128; the loss must fall.
 The line before the last is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -38,6 +52,20 @@ PEAK_BYTES = 3.35e12
 # the alpha test: dx, dy, dx^2, dy^2, dx*dy, three coefficient products, two
 # sums, exp, the opacity product and the clamp.
 BLEND_FLOPS_PER_PAIR = 13
+# The backward blend's further operations per passing pair and per pair
+# that contributes colour (counted from csrc/rasterize_backward.cu's code,
+# see its note).
+BACKWARD_FLOPS_PER_PASSING_PAIR = 34
+BACKWARD_FLOPS_PER_CONTRIB_PAIR = 16
+GRAD_FIELDS = ("means", "log_scales", "quats", "opacities", "sh")
+
+# The configurations: BASELINE config 2, the TPU gate's small one, and the
+# garden shapes of bench.py:43.
+PARITY = dict(n=100_000, width=800, height=800)
+GRAD = dict(n=6000, width=128, height=128)
+GARDEN = dict(n=1_400_000, width=1920, height=1080)
+REHEARSAL = ["--synthetic", "--steps", "30", "--width", "128", "--height", "128",
+             "--n-init", "2000", "--log-every", "10", "--densify-every", "10"]
 
 
 def log(**kw):
@@ -102,15 +130,87 @@ def orbit_cameras(look_at_camera, eye, target, width, height, fov, frames, devic
     return cams
 
 
+def check_rows(name, got, want, atol=1e-4) -> float:
+    """Each row of [K, M] ``got`` against ``want``, normalised by the row's
+    largest magnitude in ``want``; returns the largest normalised error."""
+    worst = 0.0
+    for k in range(want.shape[0]):
+        scale = float(want[k].abs().max()) + 1e-12
+        err = float((got[k] - want[k]).abs().max()) / scale
+        if not math.isfinite(err) or err > atol:
+            fail(f"{name}: row {k} off by {err} of its max {scale} (normalised atol {atol})")
+        worst = max(worst, err)
+    return worst
+
+
+def bound(nbytes, nops):
+    """Least time (ms) on the card and what bounds it."""
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, nops / PEAK_FP32_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def seeded_cotangents(torch, img, tmap, seed):
+    g = torch.Generator(device=img.device).manual_seed(seed)
+    return (torch.randn(img.shape, generator=g, device=img.device),
+            torch.randn(tmap.shape, generator=g, device=img.device))
+
+
+def random_rows(torch, gauss_id, n, seed):
+    """Standard-normal gradient rows [9, C] (tests/test_compact_grad.py's
+    inputs), NaN in the slots whose id is the sentinel N, as stale memory."""
+    g = torch.Generator(device=gauss_id.device).manual_seed(seed)
+    rows = torch.randn((9, gauss_id.shape[0]), generator=g, device=gauss_id.device)
+    return torch.where(gauss_id[None, :] < n, rows, float("nan"))
+
+
+def pair_counts(torch, attr, starts, ends, tiles_x, row0, width, crop_h, cfg, tb=32):
+    """(visited, passing, contributing) (instance, pixel) pairs of the blend
+    walk over the pixels inside the output: the data-dependent work of the
+    backward kernel's bound."""
+    num_tiles = starts.shape[0]
+    npx = cfg.tile_w * cfg.tile_h
+    dev = attr.device
+    cap = attr.shape[1]
+    lin = torch.arange(npx, device=dev)
+    lx, ly = lin % cfg.tile_w, lin // cfg.tile_w
+    counts = (ends - starts).long()
+    totals = torch.zeros(3, dtype=torch.int64, device=dev)
+    batch_k = torch.nn.functional.pad(counts, (0, -num_tiles % tb)).reshape(-1, tb)
+    for bi, k in enumerate(batch_k.max(dim=1).values.tolist()):
+        tiles = torch.arange(bi * tb, min((bi + 1) * tb, num_tiles), device=dev)
+        if k == 0:
+            continue
+        ix = (tiles % tiles_x)[:, None] * cfg.tile_w + lx[None, :]
+        iy = (tiles // tiles_x)[:, None] * cfg.tile_h + ly[None, :]
+        inside = (ix < width) & (iy < crop_h)  # [B, P]
+        px, py = ix.float(), (iy + row0 * cfg.tile_h).float()
+        t_acc = torch.ones(inside.shape, device=dev)
+        for k0 in range(0, k, 256):
+            ks = torch.arange(k0, min(k0 + 256, k), device=dev)
+            valid = ks[None, :] < counts[tiles][:, None]  # [B, K]
+            a = attr[:, torch.clamp_max(starts[tiles].long()[:, None] + ks[None, :], cap - 1)]
+            dx = a[0][..., None] - px[:, None, :]  # [B, K, P]
+            dy = a[1][..., None] - py[:, None, :]
+            power = -0.5 * (a[2][..., None] * dx * dx + a[4][..., None] * dy * dy) \
+                - a[3][..., None] * dx * dy
+            alpha = torch.clamp_max(a[5][..., None] * torch.exp(power), cfg.alpha_max)
+            seen = valid[..., None] & inside[:, None, :]
+            ok = seen & (power <= 0) & (alpha >= cfg.alpha_min)
+            t_incl = t_acc[:, None, :] * torch.cumprod(torch.where(ok, 1 - alpha, 1.0), dim=1)
+            totals += torch.stack([seen.sum(), ok.sum(), (ok & (t_incl >= cfg.t_min)).sum()])
+            t_acc = t_incl[:, -1, :]
+    return [int(v) for v in totals.tolist()]
+
+
 def phase_parity(torch, dev):
     """BASELINE config 2 (100k, 800x800, SH3): kernels against plain."""
     from tpusplat_torch import RenderConfig, look_at_camera, random_scene
-    from tpusplat_torch.ops import binning, rasterize
+    from tpusplat_torch.ops import binning, rasterize, segment_reduce
     from tpusplat_torch.ops.emission import emit_instances
     from tpusplat_torch.ops.preprocess import ProcessedGaussians, preprocess
 
-    w = h = 800
-    params = random_scene(100_000, seed=0, sh_degree=3, scale_range=(0.004, 0.04),
+    w, h = PARITY["width"], PARITY["height"]
+    params = random_scene(PARITY["n"], seed=0, sh_degree=3, scale_range=(0.004, 0.04),
                           extent=4.0, device=dev)
     cam = look_at_camera([0.0, 0.5, 9.0], [0.0, 0.0, 0.0], w, h, fov_deg=60.0, device=dev)
     cfg = RenderConfig(sh_degree=3)
@@ -144,10 +244,317 @@ def phase_parity(torch, dev):
         fail("plain blend truncated tiles")
     err_img = check_close("forward image", img, img_p, atol=3e-5, rtol=1e-4)
     err_t = check_close("forward transmittance", tmap, tmap_p, atol=3e-5)
-    log(phase="parity_100k", n=n, width=w, height=h, capacity=cap,
-        num_instances=int(b_gpu.num_instances), max_tile_count=max_count,
-        emission="bit-equal", bin_and_sort="bit-equal vs CPU",
-        forward_max_abs_err_image=err_img, forward_max_abs_err_transmittance=err_t)
+
+    # Backward kernel against autograd of the plain blend, on the same slab
+    # and on seeded cotangents of both outputs.
+    d_img, d_tmap = seeded_cotangents(torch, img, tmap, seed=0)
+    bw_args = (attr, b_gpu.tile_start, b_gpu.tile_end, img, tmap, d_img, d_tmap, tiles_x, 0,
+               w, h, cfg_p)
+    d_attr = rasterize.backward_blend(*bw_args)
+    d_attr_p = rasterize.backward_blend_plain(*bw_args)
+    live = int(b_gpu.num_instances)
+    err_bw = check_rows("backward blend", d_attr[:, :live], d_attr_p[:, :live])
+
+    # Segment reduce against index_add_, on the real ids with standard-normal
+    # rows and NaN in the sentinel slots.
+    rows, gid_s, bounds = rasterize.sort_grad_rows(
+        random_rows(torch, b_gpu.gauss_id, n, seed=1), b_gpu.gauss_id, n)
+    seg = segment_reduce.segment_reduce(rows, gid_s, bounds)
+    seg_p = segment_reduce.segment_reduce_plain(rows, gid_s, bounds)
+    err_seg = check_close("segment reduce", seg, seg_p, atol=1e-4)
+    log(phase="parity_100k", n=n, width=w, height=h, capacity=cap, num_instances=live,
+        max_tile_count=max_count, emission="bit-equal", bin_and_sort="bit-equal vs CPU",
+        forward_max_abs_err_image=err_img, forward_max_abs_err_transmittance=err_t,
+        backward_max_norm_err=err_bw, segment_reduce_max_abs_err=err_seg)
+
+
+def loss_and_grads(torch, params, cam, target, cfg):
+    """gs_loss of the render plus 0.1 mean(T), and its gradient with respect
+    to the five trainable tensors."""
+    from tpusplat_torch.render import render_stages
+    from tpusplat_torch.train.losses import gs_loss
+
+    leaves = {f: getattr(params, f).detach().clone().requires_grad_(True) for f in GRAD_FIELDS}
+    img, aux = render_stages(dataclasses.replace(params, **leaves), cam, cfg)
+    if int(aux["capacity_overflow"]) or int(aux["tile_overflow"]):
+        fail("grad_6k: the render overflowed")
+    loss = gs_loss(img, target) + 0.1 * aux["transmittance"].mean()
+    grads = torch.autograd.grad(loss, [leaves[f] for f in GRAD_FIELDS])
+    return float(loss.detach()), dict(zip(GRAD_FIELDS, grads))
+
+
+def phase_grad_6k(torch, dev):
+    """Five parameter gradients, CUDA pipeline against the CPU plain one."""
+    from tpusplat_torch import RenderConfig, look_at_camera, random_scene
+    from tpusplat_torch.ops import rasterize, segment_reduce
+
+    w, h = GRAD["width"], GRAD["height"]
+    cfg = RenderConfig(sh_degree=3)
+    target = torch.rand((h, w, 3), generator=torch.Generator().manual_seed(0))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        params = random_scene(GRAD["n"], seed=1, sh_degree=3, scale_range=(0.004, 0.04),
+                              extent=4.0, device=d)
+        cam = look_at_camera([0.0, 0.5, 9.0], [0.0, 0.0, 0.0], w, h, fov_deg=60.0, device=d)
+        before = (rasterize.BACKWARD_LAUNCHES, segment_reduce.LAUNCHES)
+        out.append(loss_and_grads(torch, params, cam, target.to(d), cfg))
+        after = (rasterize.BACKWARD_LAUNCHES, segment_reduce.LAUNCHES)
+        if d == dev and not all(a > b for a, b in zip(after, before)):
+            fail("grad_6k: the backward kernels were not launched")
+    (loss_g, g_gpu), (loss_c, g_cpu) = out
+    errs = {f: check_rows(f"grad_6k {f}", g_gpu[f].cpu().reshape(1, -1),
+                          g_cpu[f].reshape(1, -1)) for f in GRAD_FIELDS}
+    log(phase="grad_6k", n=GRAD["n"], width=w, height=h, sh_degree=3, loss_cuda=loss_g,
+        loss_cpu=loss_c, max_norm_err=errs)
+
+
+def phase_garden_serving(torch, dev, params, cams, cfg):
+    """render_auto on the orbit, the serving path's counters around it."""
+    from tpusplat_torch.ops import emission, rasterize
+    from tpusplat_torch.render import render_auto, render_profiled
+
+    w, h = cams[0].width, cams[0].height
+    render_auto(params, cams[0], cfg)  # warm-up frame
+    torch.cuda.synchronize()
+    emission.LAUNCHES = 0
+    rasterize.FORWARD_LAUNCHES = 0
+    frames_ms, instances = [], []
+    for i, cam in enumerate(cams):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        before = (emission.LAUNCHES, rasterize.FORWARD_LAUNCHES)
+        e0.record()
+        img, aux, cfg = render_auto(params, cam, cfg)
+        e1.record()
+        e1.synchronize()
+        frames_ms.append(e0.elapsed_time(e1))
+        instances.append(int(aux["num_instances"]))
+        if int(aux["capacity_overflow"]) != 0:
+            fail(f"garden frame {i}: capacity overflow")
+        if emission.LAUNCHES <= before[0] or rasterize.FORWARD_LAUNCHES <= before[1]:
+            fail(f"garden frame {i}: a kernel was not launched")
+        if img.shape != (h, w, 3) or not bool(torch.isfinite(img).all()):
+            fail(f"garden frame {i}: image not finite or of the wrong shape")
+        if float(img.max()) <= 0.0:
+            fail(f"garden frame {i}: image all black")
+    launches = dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES)
+    _, _, stage_ms = render_profiled(params, cams[0], cfg)
+    log(phase="garden_serving", n=params.num_gaussians, width=w, height=h,
+        capacity=cfg.instance_capacity(params.num_gaussians), frames_ms=frames_ms,
+        num_instances=instances, stage_ms=stage_ms, launches=launches)
+    return cfg, launches
+
+
+def phase_garden_training(torch, dev, params, cams, cfg):
+    """Three train_steps at the garden shapes through all four kernels."""
+    from tpusplat_torch import random_scene
+    from tpusplat_torch.config import regrow
+    from tpusplat_torch.ops import emission, rasterize, segment_reduce
+    from tpusplat_torch.render import render_auto
+    from tpusplat_torch.train import step as tstep
+
+    n = params.num_gaussians
+    w, h = cams[0].width, cams[0].height
+    with torch.no_grad():
+        gt = random_scene(n, seed=1, sh_degree=3, scale_range=(0.002, 0.02), extent=4.0,
+                          device=dev)
+        targets = [render_auto(gt, cam, cfg)[0] for cam in cams]
+        del gt
+    opt = tstep.make_optimizer(scene_extent=4.0)
+    state0 = tstep.create_train_state(params)
+    tstep.train_step(state0, cams[0], targets[0], cfg, opt)  # warm-up, discarded
+    torch.cuda.synchronize()
+
+    counters = (lambda: (emission.LAUNCHES, rasterize.FORWARD_LAUNCHES,
+                         rasterize.BACKWARD_LAUNCHES, segment_reduce.LAUNCHES))
+    emission.LAUNCHES = rasterize.FORWARD_LAUNCHES = 0
+    rasterize.BACKWARD_LAUNCHES = segment_reduce.LAUNCHES = 0
+    state, steps_ms, losses, retries, device_allocs = state0, [], [], 0, []
+    torch.cuda.reset_peak_memory_stats()
+    for i, cam in enumerate(cams):
+        for _ in range(5):
+            before = counters()
+            allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            new, metrics = tstep.train_step(state, cam, targets[i], cfg, opt)
+            e1.record()
+            e1.synchronize()
+            if not all(a > b for a, b in zip(counters(), before)):
+                fail(f"garden step {i}: a kernel was not launched ({counters()})")
+            cfg2, changes = regrow(cfg, metrics, n)
+            if changes is None:
+                break
+            if int(new.step) != int(state.step) or not torch.equal(new.params.means,
+                                                                   state.params.means):
+                fail(f"garden step {i}: an overflowed step changed the state")
+            cfg, retries = cfg2, retries + 1
+        else:
+            fail(f"garden step {i}: still overflowing after 5 tries")
+        state = new
+        steps_ms.append(e0.elapsed_time(e1))
+        # cudaMalloc calls the caching allocator made during the step
+        device_allocs.append(torch.cuda.memory_stats().get("num_device_alloc", 0) - allocs)
+        losses.append(float(metrics["loss"]))
+    launches = dict(zip(("emission", "forward_blend", "backward_blend", "segment_reduce"),
+                        counters()))
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"garden training: loss not finite {losses}")
+    if int(state.step) != len(cams):
+        fail(f"garden training: step {int(state.step)}, expected {len(cams)}")
+    if torch.equal(state.params.means, params.means) or \
+            torch.equal(state.params.opacities, params.opacities):
+        fail("garden training: the parameters did not change")
+
+    # One more step, split into forward (render + loss), backward and Adam.
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    marks[0].record()
+    loss, aux, leaves = tstep.step_forward(state, cams[0], targets[0], cfg)
+    marks[1].record()
+    grads = tstep.step_backward(loss, leaves)
+    marks[2].record()
+    tstep.apply_gradients(state, loss, aux, grads, opt)
+    marks[3].record()
+    marks[3].synchronize()
+    split_ms = dict(zip(("forward", "backward", "adam"),
+                        (a.elapsed_time(b) for a, b in zip(marks, marks[1:]))))
+    mean_ms = sum(steps_ms) / len(steps_ms)
+    log(phase="garden_training", n=n, width=w, height=h, sh_degree=3,
+        capacity=cfg.instance_capacity(n), steps_ms=steps_ms, losses=losses, retries=retries,
+        step=int(state.step), launches=launches, split_ms=split_ms,
+        device_allocs=device_allocs, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        mpix_per_s=w * h / (mean_ms * 1e-3) / 1e6)
+    return cfg, launches
+
+
+def phase_kernels(torch, dev, params, cam, cfg):
+    """Each kernel against its plain version at the garden shapes, timed."""
+    from tpusplat_torch.ops import binning, emission, rasterize, segment_reduce
+    from tpusplat_torch.ops.preprocess import preprocess
+
+    n = params.num_gaussians
+    w, h = cam.width, cam.height
+    tiles_x, tiles_y = cfg.tile_grid(w, h)
+    cap = cfg.instance_capacity(n)
+    out = {}
+    with torch.no_grad():
+        pg = preprocess(params, cam, cfg)
+        meta = binning.depth_sorted_meta(pg)
+        em_args = (*meta, tiles_x, cap, 0, n)
+        got = emission.emit_instances(*em_args)
+        want = binning.expand_instances_sorted(*em_args)
+        for name, a, b in zip(("tile", "gid", "total", "overflow"), got, want):
+            check_equal(f"garden emission {name}", a, b)
+        out["emission"] = dict(
+            max_abs_err=max(float((a.long() - b.long()).abs().max())
+                            for a, b in zip(got[:2], want[:2])),
+            ms=cuda_ms(torch, lambda: emission.emit_instances(*em_args), reps=20),
+            plain_ms=cuda_ms(torch, lambda: binning.expand_instances_sorted(*em_args), reps=5),
+            library_ms=None,
+            # five [N] int32 meta in, two [C] int32 out; search + division per slot
+            bound=bound(4 * (5 * n + 2 * cap), cap * (4 * math.ceil(math.log2(n)) + 10)))
+
+        binned = binning.bin_and_sort(pg, w, h, cfg)
+        attr = rasterize.pack_instances(pg, binned)
+        starts, ends = binned.tile_start, binned.tile_end
+        live = int(binned.num_instances)
+        max_count = int((ends - starts).max())
+        cfg_p = dataclasses.replace(cfg, max_per_tile=max(cfg.max_per_tile, max_count))
+        fw_args = (attr, starts, ends, tiles_x, 0, w, h, cfg_p)
+        img, tmap, _ = rasterize.forward_blend(*fw_args)
+        img_p, tmap_p, _ = rasterize.blend_plain(*fw_args)
+        npx = cfg.tile_w * cfg.tile_h
+        out["forward_blend"] = dict(
+            max_abs_err=max(check_close("garden forward image", img, img_p, atol=3e-5,
+                                        rtol=1e-4),
+                            check_close("garden forward transmittance", tmap, tmap_p,
+                                        atol=3e-5)),
+            ms=cuda_ms(torch, lambda: rasterize.forward_blend(*fw_args), reps=20),
+            plain_ms=cuda_ms(torch, lambda: rasterize.blend_plain(*fw_args), reps=2),
+            library_ms=None,
+            bound=bound(4 * (9 * live + 2 * tiles_x * tiles_y + 4 * w * h),
+                        live * npx * BLEND_FLOPS_PER_PAIR))
+        del img_p, tmap_p
+
+        # Backward blend: the kernel on the full frame; against its plain
+        # version (autograd of the plain blend) on a strip of 4 tile rows
+        # through the middle of the image, where the full frame's autograd
+        # would not fit.
+        d_img, d_tmap = seeded_cotangents(torch, img, tmap, seed=2)
+        bw_args = (attr, starts, ends, img, tmap, d_img, d_tmap, tiles_x, 0, w, h, cfg_p)
+        d_attr = rasterize.backward_blend(*bw_args)
+        r0, nr = tiles_y // 2 - 2, 4
+        tsl = slice(r0 * tiles_x, (r0 + nr) * tiles_x)
+        psl = slice(r0 * cfg.tile_h, (r0 + nr) * cfg.tile_h)
+        st_args = (attr, starts[tsl], ends[tsl], img[psl], tmap[psl], d_img[psl], d_tmap[psl],
+                   tiles_x, r0, w, nr * cfg.tile_h, cfg_p)
+        lo, hi = int(starts[tsl][0]), int(ends[tsl][-1])
+        d_strip = rasterize.backward_blend(*st_args)
+        d_strip_p = rasterize.backward_blend_plain(*st_args)
+        visited, passing, contrib = pair_counts(torch, attr, starts, ends, tiles_x, 0, w, h,
+                                                cfg_p)
+        out["backward_blend"] = dict(
+            max_abs_err=check_rows("garden backward blend (strip)", d_strip[:, lo:hi],
+                                   d_strip_p[:, lo:hi]),
+            max_err_is="normalised by each row's largest magnitude",
+            ms=cuda_ms(torch, lambda: rasterize.backward_blend(*bw_args), reps=20),
+            strip=dict(tile_rows=[r0, r0 + nr], instances=hi - lo,
+                       ms=cuda_ms(torch, lambda: rasterize.backward_blend(*st_args), reps=20)),
+            plain_ms=cuda_ms(torch, lambda: rasterize.backward_blend_plain(*st_args), reps=2),
+            plain_scope=f"strip of tile rows {r0}..{r0 + nr - 1} ({hi - lo} instances)",
+            library_ms=None, pairs=dict(visited=visited, passing=passing,
+                                        contributing=contrib),
+            # slab in and out, tile ranges, img, T and both cotangents
+            bound=bound(4 * (18 * live + 2 * tiles_x * tiles_y + 8 * w * h),
+                        visited * BLEND_FLOPS_PER_PAIR
+                        + passing * BACKWARD_FLOPS_PER_PASSING_PAIR
+                        + contrib * BACKWARD_FLOPS_PER_CONTRIB_PAIR))
+        del d_strip, d_strip_p
+
+        # Segment reduce on the real gradient ids, and the same reduce as one
+        # index_add_ call (the library yardstick, never used by the port).
+        rows, gid_s, bounds = rasterize.sort_grad_rows(d_attr, binned.gauss_id, n)
+        r_rows, _, _ = rasterize.sort_grad_rows(random_rows(torch, binned.gauss_id, n, seed=3),
+                                                binned.gauss_id, n)
+        seg_err = check_close("garden segment reduce",
+                              segment_reduce.segment_reduce(r_rows, gid_s, bounds),
+                              segment_reduce.segment_reduce_plain(r_rows, gid_s, bounds),
+                              atol=1e-4)
+        keep = gid_s < n
+        k_ids, k_rows = gid_s[keep].long(), rows[:, keep].contiguous()
+        out["segment_reduce"] = dict(
+            max_abs_err=seg_err,
+            ms=cuda_ms(torch, lambda: segment_reduce.segment_reduce(rows, gid_s, bounds),
+                       reps=20),
+            plain_ms=cuda_ms(torch, lambda: segment_reduce.segment_reduce_plain(
+                rows, gid_s, bounds), reps=5),
+            library_ms=cuda_ms(torch, lambda: torch.zeros((9, n), device=dev).index_add_(
+                1, k_ids, k_rows), reps=20),
+            gather_grad_ms=cuda_ms(torch, lambda: rasterize.gather_grad(
+                d_attr, binned.gauss_id, n), reps=20),
+            # 9 values and the id per live row, the bounds; 9 sums per Gaussian
+            bound=bound(4 * (10 * live + (n + 1) + 9 * n), 9 * live))
+    for v in out.values():
+        v["bound_ms"], v["bound_by"] = v.pop("bound")
+    log(phase="kernels_garden", num_instances=live, max_tile_count=max_count, kernels=out)
+    return out
+
+
+def phase_trainer_rehearsal(torch, dev):
+    """The trainer CLI for 30 steps at 128x128 on the card; the loss falls."""
+    import pathlib
+
+    from tpusplat_torch import trainer
+
+    out_dir = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    summary = trainer.main([*REHEARSAL, "--device", dev.type,
+                            "--out", str(out_dir / "rehearsal.ply")])
+    losses = [v for _, v in summary["losses"]]
+    if len(losses) < 2 or not losses[-1] < losses[0]:
+        fail(f"trainer rehearsal: the loss did not fall: {losses}")
+    log(phase="trainer_rehearsal", seconds=time.perf_counter() - t0, losses=losses,
+        final_eval=summary["evals"][-1], step=summary["step"])
 
 
 def main() -> int:
@@ -157,18 +564,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs the GPU",
               file=sys.stderr)
         return 1
+    return run(torch, torch.device("cuda"), torch.cuda.get_device_name(0), nvidia_smi())
 
+
+def run(torch, dev, kind: str, smi: str) -> int:
     from tpusplat_torch import RenderConfig, look_at_camera, random_scene
-    from tpusplat_torch.ops import _build, binning, emission, rasterize
+    from tpusplat_torch.ops import _build
     from tpusplat_torch.ops.preprocess import preprocess
-    from tpusplat_torch.render import render_auto, render_profiled
 
-    # Parity precision: the plain blend's colour sum is a matmul.
+    # Parity precision: the plain blend's colour sum is a matmul, and the
+    # SSIM filter a cuDNN convolution.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi()
     log(phase="device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
 
@@ -182,101 +589,42 @@ def main() -> int:
 
     with torch.no_grad():
         phase_parity(torch, dev)
+    phase_grad_6k(torch, dev)
 
-        # ---- garden serving (bench.py's garden configuration) ----
-        n, w, h = 1_400_000, 1920, 1080
-        params = random_scene(n, seed=0, sh_degree=3, scale_range=(0.002, 0.02),
-                              extent=4.0, device=dev)
-        cams = orbit_cameras(look_at_camera, [0.0, 0.5, 9.0], [0.0, 0.0, 0.0], w, h,
-                             60.0, 3, dev)
-        cfg = RenderConfig(sh_degree=3, capacity_mult=4, max_per_tile=4096,
-                           tight_radius=True)
+    # ---- garden (bench.py's garden configuration) ----
+    n, w, h = GARDEN["n"], GARDEN["width"], GARDEN["height"]
+    params = random_scene(n, seed=0, sh_degree=3, scale_range=(0.002, 0.02), extent=4.0,
+                          device=dev)
+    cams = orbit_cameras(look_at_camera, [0.0, 0.5, 9.0], [0.0, 0.0, 0.0], w, h, 60.0, 3,
+                         dev)
+    cfg = RenderConfig(sh_degree=3, capacity_mult=4, max_per_tile=4096, tight_radius=True)
+    with torch.no_grad():
         needed = int(preprocess(params, cams[0], cfg).ntiles.sum())
         cfg = dataclasses.replace(cfg, capacity=int(needed * 1.05))
-        tiles_x, tiles_y = cfg.tile_grid(w, h)
+        cfg, serving = phase_garden_serving(torch, dev, params, cams, cfg)
+    cfg, training = phase_garden_training(torch, dev, params, cams, cfg)
+    timed = phase_kernels(torch, dev, params, cams[0], cfg)
+    phase_trainer_rehearsal(torch, dev)
 
-        render_auto(params, cams[0], cfg)  # warm-up frame
-        torch.cuda.synchronize()
-        emission.LAUNCHES = 0
-        rasterize.FORWARD_LAUNCHES = 0
-        frames_ms, instances = [], []
-        for i, cam in enumerate(cams):
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            before = (emission.LAUNCHES, rasterize.FORWARD_LAUNCHES)
-            e0.record()
-            img, aux, cfg = render_auto(params, cam, cfg)
-            e1.record()
-            e1.synchronize()
-            frames_ms.append(e0.elapsed_time(e1))
-            instances.append(int(aux["num_instances"]))
-            if int(aux["capacity_overflow"]) != 0:
-                fail(f"garden frame {i}: capacity overflow")
-            if emission.LAUNCHES <= before[0] or rasterize.FORWARD_LAUNCHES <= before[1]:
-                fail(f"garden frame {i}: a kernel was not launched")
-            if img.shape != (h, w, 3) or not bool(torch.isfinite(img).all()):
-                fail(f"garden frame {i}: image not finite or of the wrong shape")
-            if float(img.max()) <= 0.0:
-                fail(f"garden frame {i}: image all black")
-        launches = dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES)
-
-        _, _, stage_ms = render_profiled(params, cams[0], cfg)
-
-        # ---- kernels against plain versions at the garden shapes ----
-        cap = cfg.instance_capacity(n)
-        pg = preprocess(params, cams[0], cfg)
-        meta = binning.depth_sorted_meta(pg)
-        em_args = (*meta, tiles_x, cap, 0, n)
-        got = emission.emit_instances(*em_args)
-        want = binning.expand_instances_sorted(*em_args)
-        for name, a, b in zip(("tile", "gid", "total", "overflow"), got, want):
-            check_equal(f"garden emission {name}", a, b)
-        em_err = max(float((a.long() - b.long()).abs().max()) for a, b in zip(got[:2], want[:2]))
-        em_ms = cuda_ms(torch, lambda: emission.emit_instances(*em_args), reps=20)
-        em_plain_ms = cuda_ms(torch, lambda: binning.expand_instances_sorted(*em_args), reps=5)
-        em_bytes = 4 * (5 * n + 2 * cap)  # five [N] int32 meta in, two [C] int32 out
-        em_ops = cap * (4 * math.ceil(math.log2(n)) + 10)  # search + division per slot
-
-        binned = binning.bin_and_sort(pg, w, h, cfg)
-        attr = rasterize.pack_instances(pg, binned)
-        num_inst = int(binned.num_instances)
-        max_count = int((binned.tile_end - binned.tile_start).max())
-        cfg_p = dataclasses.replace(cfg, max_per_tile=max(cfg.max_per_tile, max_count))
-        fw_args = (attr, binned.tile_start, binned.tile_end, tiles_x, 0, w, h, cfg_p)
-        img, tmap, _ = rasterize.forward_blend(*fw_args)
-        img_p, tmap_p, _ = rasterize.blend_plain(*fw_args)
-        fw_err = max(check_close("garden forward image", img, img_p, atol=3e-5, rtol=1e-4),
-                     check_close("garden forward transmittance", tmap, tmap_p, atol=3e-5))
-        fw_ms = cuda_ms(torch, lambda: rasterize.forward_blend(*fw_args), reps=20)
-        fw_plain_ms = cuda_ms(torch, lambda: rasterize.blend_plain(*fw_args), reps=2)
-        npx = cfg.tile_w * cfg.tile_h
-        fw_flops = num_inst * npx * BLEND_FLOPS_PER_PAIR
-        fw_bytes = 4 * (9 * num_inst + 2 * tiles_x * tiles_y + 4 * w * h)
-
-    def bound(nbytes, nops):
-        t_b, t_o = nbytes / PEAK_BYTES * 1e3, nops / PEAK_FP32_FLOPS * 1e3
-        return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-    em_bound, em_by = bound(em_bytes, em_ops)
-    fw_bound, fw_by = bound(fw_bytes, fw_flops)
-    log(phase="garden", n=n, width=w, height=h, capacity=cap, frames_ms=frames_ms,
-        num_instances=instances, max_tile_count=max_count, stage_ms=stage_ms,
-        launches=launches,
-        kernel_ms=dict(emission=dict(ms=em_ms, bound_ms=em_bound, plain_ms=em_plain_ms),
-                       forward_blend=dict(ms=fw_ms, bound_ms=fw_bound,
-                                          plain_ms=fw_plain_ms)))
-    kernels = [
-        dict(name="emission", route="cuda", source="tpusplat_torch/csrc/emission.cu",
-             replaces="tpusplat/ops/emission.py:76", launches=launches["emission"],
-             max_abs_err=em_err, ms=em_ms, plain_ms=em_plain_ms, bound_ms=em_bound,
-             bound_by=em_by, library_ms=None),
-        dict(name="forward_blend", route="cuda",
-             source="tpusplat_torch/csrc/rasterize_forward.cu",
-             replaces="tpusplat/ops/rasterize_pallas.py:220",
-             launches=launches["forward_blend"], max_abs_err=fw_err, ms=fw_ms,
-             plain_ms=fw_plain_ms, bound_ms=fw_bound, bound_by=fw_by, library_ms=None),
-    ]
+    sources = dict(
+        emission=("tpusplat_torch/csrc/emission.cu", "tpusplat/ops/emission.py:76"),
+        forward_blend=("tpusplat_torch/csrc/rasterize_forward.cu",
+                       "tpusplat/ops/rasterize_pallas.py:220"),
+        backward_blend=("tpusplat_torch/csrc/rasterize_backward.cu",
+                        "tpusplat/ops/rasterize_pallas.py:326"),
+        segment_reduce=("tpusplat_torch/csrc/segment_reduce.cu",
+                        "tpusplat/ops/rasterize_pallas.py:738"),
+    )
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        t = timed[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=training[name], launches_serving=serving.get(name),
+            max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"]))
     if any(k["launches"] < len(cams) for k in kernels):
-        fail(f"launch counts {launches} below one a frame")
+        fail(f"launch counts {training} below one a step")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -39,6 +39,8 @@
 
 #include <cuda_runtime.h>
 
+#include "blend_pair.cuh"
+
 namespace {
 
 constexpr int kAttrRows = 9;
@@ -75,17 +77,14 @@ __global__ void forward_kernel(const float* __restrict__ attr, long long stride,
     }
     __syncthreads();
     for (int j = 0; j < cnt; ++j) {
-      const float dx = batch[0 * npx + j] - px;
-      const float dy = batch[1 * npx + j] - py;
-      const float ca = batch[2 * npx + j];
-      const float cbx = batch[3 * npx + j];
-      const float cc = batch[4 * npx + j];
-      const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cbx * dx * dy;
-      const float alpha = fminf(alpha_max, batch[5 * npx + j] * expf(power));
-      if (power <= 0.0f && alpha >= alpha_min) {
-        const float t_incl = T * (1.0f - alpha);
+      const BlendPair q = blend_pair(batch[0 * npx + j], batch[1 * npx + j],
+                                     batch[2 * npx + j], batch[3 * npx + j],
+                                     batch[4 * npx + j], batch[5 * npx + j], px, py,
+                                     alpha_max);
+      if (q.power <= 0.0f && q.alpha >= alpha_min) {
+        const float t_incl = T * (1.0f - q.alpha);
         if (t_incl >= t_min) {
-          const float w = alpha * T;
+          const float w = q.alpha * T;
           cr += batch[6 * npx + j] * w;
           cg += batch[7 * npx + j] * w;
           cb += batch[8 * npx + j] * w;

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpusplat_torch"
-KERNELS = ("emission", "rasterize_forward")
+KERNELS = ("emission", "rasterize_forward", "rasterize_backward", "segment_reduce")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC",
@@ -91,6 +91,16 @@ def load(name: str) -> ctypes.CDLL:
                 build([name])
             lib = _libs[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, with its argument
+    types set and an ``int`` (``cudaError_t``) return."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def check(err: int, what: str) -> None:

@@ -19,18 +19,11 @@ from tpusplat_torch.ops.binning import SENTINEL, _counters, expand_instances_sor
 
 LAUNCHES = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 
-_sig_set = False
 
-
-def _lib():
-    global _sig_set
-    lib = _build.load("emission")
-    if not _sig_set:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tpusplat_emission.argtypes = [p, p, p, p, p, i, p, i, i, i, i, p, p, p]
-        lib.tpusplat_emission.restype = i
-        _sig_set = True
-    return lib
+def _kernel():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.function("emission", "tpusplat_emission",
+                           [p, p, p, p, p, i, p, i, i, i, i, p, p, p])
 
 
 def emit_instances(ids, ntiles, x0, y0, bbh, tiles_x: int, capacity: int,
@@ -64,7 +57,7 @@ def _emit_cuda(ids, ntiles, x0, y0, bbh, tiles_x, capacity, row0, n_sentinel):
     off = (cum - ntiles).clamp_max(SENTINEL).to(torch.int32)
     tile = torch.empty(capacity, dtype=torch.int32, device=ids.device)
     gid = torch.empty_like(tile)
-    err = _lib().tpusplat_emission(
+    err = _kernel()(
         off.data_ptr(), x0.data_ptr(), y0.data_ptr(), bbh.data_ptr(), ids.data_ptr(), n,
         total.data_ptr(), capacity, tiles_x, int(row0), n_sentinel,
         tile.data_ptr(), gid.data_ptr(), _build.stream_ptr(ids.device))

@@ -1,19 +1,25 @@
-"""Tile rasterization: attribute gather and forward blend.
+"""Tile rasterization: attribute gather, forward blend and their gradients.
 
 Counterpart of two JAX modules: ``tpusplat/ops/rasterize_pallas.py``
-(forward half: ``pack_instances``, the forward kernel, ``_assemble_strip``)
-and ``tpusplat/ops/rasterize_xla.py`` (the chunked-cumprod blend, which is
-the plain version here).
+(``pack_instances`` with ``_pack_gather``, ``_raster_core`` with the
+forward and backward kernels, ``_assemble_strip``) and
+``tpusplat/ops/rasterize_xla.py`` (the chunked-cumprod blend, which is the
+plain version here).
 
   * :func:`pack_instances` gathers the per-instance attributes into a
     [9, C] float32 slab (rows: uv.x, uv.y, conic a/b/c, opacity, r/g/b;
     dead slots, whose gid is N, read Gaussian N-1 and lie outside every
     tile range). The JAX slab's 7 pad rows and WIN pad columns were for TPU
-    tiling and DMA windows and are dropped.
-  * :func:`forward_blend` routes by device: a CPU tensor goes through
-    :func:`blend_plain`, a CUDA tensor through ``csrc/rasterize_forward.cu``
-    (or the call raises). The kernel has no backward yet: a CUDA call that
-    needs a gradient raises.
+    tiling and DMA windows and are dropped. Its backward
+    (:func:`gather_grad`) is the JAX ``_pack_gather_bwd``: a stable sort of
+    the gradient rows by the raw gid, ``searchsorted`` for each Gaussian's
+    run, and the segment reduce of :mod:`tpusplat_torch.ops.segment_reduce`,
+    which drops the sentinel ids (their rows hold stale memory on the card).
+  * :func:`forward_blend` and :func:`backward_blend` route by device: a CPU
+    tensor goes through :func:`blend_plain` and :func:`backward_blend_plain`
+    (autograd of the plain blend), a CUDA tensor through
+    ``csrc/rasterize_forward.cu`` and ``csrc/rasterize_backward.cu`` (or the
+    call raises). ``_RasterCore`` joins them for autograd on both devices.
 
 The blend: per pixel, front to back, ``alpha = min(0.99, op exp(power))``;
 instances with ``power > 0`` or ``alpha < 1/255`` are skipped; an instance
@@ -31,34 +37,72 @@ from tpusplat_torch.config import RenderConfig
 from tpusplat_torch.ops import _build
 from tpusplat_torch.ops.binning import BinnedInstances
 from tpusplat_torch.ops.preprocess import ProcessedGaussians
+from tpusplat_torch.ops.segment_reduce import segment_reduce
 
 ATTR_ROWS = 9
 A_UVX, A_UVY, A_CA, A_CB, A_CC, A_OP, A_CR, A_CG, A_CB_ = range(ATTR_ROWS)
 
-FORWARD_LAUNCHES = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+# Kernel launches since the last reset (chip_smoke.py reads them).
+FORWARD_LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
 
-_sig_set = False
+
+def _forward_kernel():
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.function("rasterize_forward", "tpusplat_forward",
+                           [p, ctypes.c_longlong, p, p, i, i, i, i, i, i, i, f, f, f, p, p, p])
 
 
-def _lib():
-    global _sig_set
-    lib = _build.load("rasterize_forward")
-    if not _sig_set:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tpusplat_forward.argtypes = [p, ctypes.c_longlong, p, p, i, i, i, i, i, i, i,
-                                         f, f, f, p, p, p]
-        lib.tpusplat_forward.restype = i
-        _sig_set = True
-    return lib
+def _backward_kernel():
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.function("rasterize_backward", "tpusplat_backward",
+                           [p, ctypes.c_longlong, p, p, i, i, i, i, i, i, i, f, f, f,
+                            p, p, p, p, p, p])
 
 
 def pack_instances(pg: ProcessedGaussians, binned: BinnedInstances) -> torch.Tensor:
     """The [9, C] attribute slab of the sorted instances (differentiable)."""
-    n = pg.uv.shape[0]
     table = torch.cat(
         [pg.uv.T, pg.conic.T, pg.opacity[None, :], pg.color.T], dim=0
     )  # [9, N]
-    return table.index_select(1, torch.clamp_max(binned.gauss_id, n - 1))
+    return _PackGather.apply(table, binned.gauss_id)
+
+
+class _PackGather(torch.autograd.Function):
+    """attr [9, C] = table [9, N] at the clamped gid; the backward reduces
+    by the raw gid (``_pack_gather`` of rasterize_pallas.py)."""
+
+    @staticmethod
+    def forward(ctx, table, gauss_id):
+        n = table.shape[1]
+        ctx.save_for_backward(gauss_id)
+        ctx.n = n
+        return table.index_select(1, torch.clamp_max(gauss_id, n - 1))
+
+    @staticmethod
+    def backward(ctx, d_attr):
+        (gauss_id,) = ctx.saved_tensors
+        return gather_grad(d_attr, gauss_id, ctx.n), None
+
+
+def sort_grad_rows(rows: torch.Tensor, gauss_id: torch.Tensor, n: int):
+    """Re-sort the gradient rows [9, C] by the raw gid (stable): returns
+    (rows [9, C], sorted gid [C], bounds [N + 1]), where
+    ``[bounds[g], bounds[g+1])`` is Gaussian g's run -- the inputs of the
+    segment reduce (``_sort_grad_rows`` of rasterize_pallas.py)."""
+    gid_s, perm = torch.sort(gauss_id, stable=True)
+    ids = torch.arange(n + 1, dtype=gid_s.dtype, device=gid_s.device)
+    return (rows.index_select(1, perm), gid_s,
+            torch.searchsorted(gid_s, ids, out_int32=True))
+
+
+def gather_grad(d_attr: torch.Tensor, gauss_id: torch.Tensor, n: int) -> torch.Tensor:
+    """The transpose of the gather: d_attr [9, C] -> d_table [9, N].
+
+    A segment reduction keyed on the raw gid, never autograd's
+    ``index_select`` backward on the clamped gid, which would add every dead
+    slot's row (gid N, stale memory on the card) to Gaussian N-1."""
+    return segment_reduce(*sort_grad_rows(d_attr, gauss_id, n))
 
 
 def _assemble_strip(rgb_tiles, t_tiles, nrows, tiles_x, tw, th, crop_h, width):
@@ -164,38 +208,113 @@ def forward_blend(attr, starts, ends, tiles_x: int, row0: int, width: int, crop_
     return _forward_cuda(attr, starts, ends, tiles_x, row0, width, crop_h, cfg)
 
 
-def _forward_cuda(attr, starts, ends, tiles_x, row0, width, crop_h, cfg):
-    global FORWARD_LAUNCHES
-    if attr.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "forward_blend: the CUDA backward blend is not ported yet; render "
-            "under torch.no_grad() on the card")
+def _check_blend_args(what, attr, starts, ends, tiles_x, width, crop_h, cfg):
+    """The CUDA blend kernels' contract; raises on what they do not take."""
     num_tiles = starts.shape[0]
     npx = cfg.tile_w * cfg.tile_h
     if attr.dtype != torch.float32 or attr.dim() != 2 or attr.shape[0] != ATTR_ROWS \
             or not attr.is_contiguous():
-        raise ValueError(f"forward_blend: attr must be contiguous float32 [{ATTR_ROWS}, C], "
+        raise ValueError(f"{what}: attr must be contiguous float32 [{ATTR_ROWS}, C], "
                          f"got {attr.dtype} {tuple(attr.shape)}")
     for name, t in dict(starts=starts, ends=ends).items():
         if t.device != attr.device or t.dtype != torch.int32 or t.shape != (num_tiles,) \
                 or not t.is_contiguous():
-            raise ValueError(f"forward_blend: {name} must be contiguous int32 [{num_tiles}] "
+            raise ValueError(f"{what}: {name} must be contiguous int32 [{num_tiles}] "
                              f"on {attr.device}")
-    if num_tiles == 0 or num_tiles % tiles_x or not 0 < npx <= 1024:
-        raise ValueError(f"forward_blend: {num_tiles} tiles, tiles_x {tiles_x}, "
-                         f"{npx} pixels a tile")
+    if num_tiles == 0 or num_tiles % tiles_x or not 0 < npx <= 1024 or npx % 32:
+        raise ValueError(f"{what}: {num_tiles} tiles, tiles_x {tiles_x}, "
+                         f"{npx} pixels a tile (a multiple of 32 up to 1024)")
     if crop_h > (num_tiles // tiles_x) * cfg.tile_h or width > tiles_x * cfg.tile_w:
-        raise ValueError("forward_blend: the tiles do not cover the output")
+        raise ValueError(f"{what}: the tiles do not cover the output")
+
+
+def _forward_cuda(attr, starts, ends, tiles_x, row0, width, crop_h, cfg):
+    global FORWARD_LAUNCHES
+    _check_blend_args("forward_blend", attr, starts, ends, tiles_x, width, crop_h, cfg)
     img = torch.empty((crop_h, width, 3), dtype=torch.float32, device=attr.device)
     tmap = torch.empty((crop_h, width), dtype=torch.float32, device=attr.device)
-    err = _lib().tpusplat_forward(
-        attr.data_ptr(), attr.stride(0), starts.data_ptr(), ends.data_ptr(), num_tiles,
+    err = _forward_kernel()(
+        attr.data_ptr(), attr.stride(0), starts.data_ptr(), ends.data_ptr(), starts.shape[0],
         tiles_x, cfg.tile_w, cfg.tile_h, int(row0), width, crop_h, cfg.alpha_max,
         cfg.alpha_min, cfg.t_min, img.data_ptr(), tmap.data_ptr(),
         _build.stream_ptr(attr.device))
     _build.check(err, "forward blend kernel")
     FORWARD_LAUNCHES += 1
     return img, tmap, torch.zeros((), dtype=torch.int32, device=attr.device)
+
+
+def backward_blend_plain(attr, starts, ends, img, tmap, d_img, d_tmap, tiles_x: int,
+                         row0: int, width: int, crop_h: int, cfg: RenderConfig):
+    """Plain version of the backward kernel, on any device: autograd of
+    :func:`blend_plain`, which recomputes the walk (``img`` and ``tmap``
+    are not read). Returns d_attr [9, C], zero outside the tile ranges and
+    past ``cfg.max_per_tile`` instances of a tile."""
+    with torch.enable_grad():
+        a = attr.detach().requires_grad_(True)
+        img_r, tmap_r, _ = blend_plain(a, starts, ends, tiles_x, row0, width, crop_h, cfg)
+        (d_attr,) = torch.autograd.grad((img_r, tmap_r), (a,), (d_img, d_tmap))
+    return d_attr
+
+
+def backward_blend(attr, starts, ends, img, tmap, d_img, d_tmap, tiles_x: int, row0: int,
+                   width: int, crop_h: int, cfg: RenderConfig):
+    """Gradient of the forward blend: d_attr [9, C] from the slab, the tile
+    ranges, the forward's outputs ``img`` [crop_h, width, 3] and ``tmap``
+    [crop_h, width], and their cotangents ``d_img``/``d_tmap`` (same
+    shapes). The kernel writes only the rows inside the tile ranges; the
+    rest of its output is uninitialised (the gather's backward drops it)."""
+    if attr.device.type == "cpu":
+        return backward_blend_plain(attr, starts, ends, img, tmap, d_img, d_tmap, tiles_x,
+                                    row0, width, crop_h, cfg)
+    return _backward_cuda(attr, starts, ends, img, tmap, d_img, d_tmap, tiles_x, row0,
+                          width, crop_h, cfg)
+
+
+def _backward_cuda(attr, starts, ends, img, tmap, d_img, d_tmap, tiles_x, row0, width,
+                   crop_h, cfg):
+    global BACKWARD_LAUNCHES
+    _check_blend_args("backward_blend", attr, starts, ends, tiles_x, width, crop_h, cfg)
+    shapes = dict(img=(crop_h, width, 3), tmap=(crop_h, width), d_img=(crop_h, width, 3),
+                  d_tmap=(crop_h, width))
+    tensors = dict(img=img, tmap=tmap, d_img=d_img, d_tmap=d_tmap)
+    for name, shape in shapes.items():
+        t = tensors[name]
+        if t.device != attr.device or t.dtype != torch.float32 or t.shape != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"backward_blend: {name} must be contiguous float32 {shape} on "
+                             f"{attr.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    d_attr = torch.empty_like(attr)
+    err = _backward_kernel()(
+        attr.data_ptr(), attr.stride(0), starts.data_ptr(), ends.data_ptr(), starts.shape[0],
+        tiles_x, cfg.tile_w, cfg.tile_h, int(row0), width, crop_h, cfg.alpha_max,
+        cfg.alpha_min, cfg.t_min, img.data_ptr(), tmap.data_ptr(), d_img.data_ptr(),
+        d_tmap.data_ptr(), d_attr.data_ptr(), _build.stream_ptr(attr.device))
+    _build.check(err, "backward blend kernel")
+    BACKWARD_LAUNCHES += 1
+    return d_attr
+
+
+class _RasterCore(torch.autograd.Function):
+    """(img, tmap, tile_overflow) = forward_blend(attr, ...), whose backward
+    is :func:`backward_blend` (``_raster_core`` of rasterize_pallas.py)."""
+
+    @staticmethod
+    def forward(ctx, attr, starts, ends, tiles_x, row0, width, crop_h, cfg):
+        img, tmap, tile_overflow = forward_blend(attr, starts, ends, tiles_x, row0, width,
+                                                 crop_h, cfg)
+        ctx.save_for_backward(attr, starts, ends, img, tmap)
+        ctx.static = (tiles_x, row0, width, crop_h, cfg)
+        ctx.mark_non_differentiable(tile_overflow)
+        return img, tmap, tile_overflow
+
+    @staticmethod
+    def backward(ctx, d_img, d_tmap, _d_overflow):
+        attr, starts, ends, img, tmap = ctx.saved_tensors
+        # An unused output's cotangent (usually T's) counts as zeros.
+        d_img = torch.zeros_like(img) if d_img is None else d_img.contiguous()
+        d_tmap = torch.zeros_like(tmap) if d_tmap is None else d_tmap.contiguous()
+        d_attr = backward_blend(attr, starts, ends, img, tmap, d_img, d_tmap, *ctx.static)
+        return (d_attr,) + (None,) * 7
 
 
 def rasterize(
@@ -215,7 +334,7 @@ def rasterize(
         nrows = tiles_y
     crop_h = height if not strip else nrows * cfg.tile_h
     attr = pack_instances(pg, binned)
-    img, tmap, tile_overflow = forward_blend(
+    img, tmap, tile_overflow = _RasterCore.apply(
         attr, binned.tile_start, binned.tile_end, tiles_x, row0, width, crop_h, cfg)
     counts = binned.tile_end - binned.tile_start
     aux = dict(
