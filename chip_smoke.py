@@ -7,6 +7,7 @@ Phases, one output line each; any failure exits non-zero:
      name and ``nvidia-smi``'s name and power limit;
   2. build: compiles every kernel of the serving and training paths from
      ``csrc/`` with nvcc (in parallel) and prints the ptxas resource report;
+     a register spill fails the run;
   3. parity at 100k Gaussians, 800x800, SH3 (BASELINE config 2): the
      emission kernel against its plain version (bit-equal), the CUDA
      bin_and_sort against the CPU one on the same preprocessed Gaussians
@@ -14,8 +15,11 @@ Phases, one output line each; any failure exits non-zero:
      (image atol 3e-5 rtol 1e-4, transmittance atol 3e-5), the
      backward-blend kernel against its plain version (autograd of the plain
      blend) on seeded cotangents of the image and of T (each of the 9
-     gradient rows normalised by its largest magnitude, atol 1e-4), and the
-     segment reduce against its plain version (atol 1e-4);
+     gradient rows normalised by its largest magnitude, atol 1e-4), again on
+     an adversarial copy of the slab (opacities at alpha_min x (1 +- 1e-4),
+     conics pushed to b = 0.999 sqrt(ac)) that tests the backward kernel's
+     cull, again on 12x8 and 64x1 tiles (its warps then row-major), and
+     the segment reduce against its plain version (atol 1e-4);
   4. grad_6k: the gradients of all five parameters through the whole CUDA
      pipeline against the plain pipeline on the CPU, same inputs, at 6k
      Gaussians, 128x128, SH3 (normalised atol 1e-4);
@@ -28,7 +32,12 @@ Phases, one output line each; any failure exits non-zero:
      step split into forward, backward and Adam;
   7. kernels at the garden shapes: each against its plain version, timed
      with CUDA events beside its bound, the plain version's time and, where
-     one PyTorch call computes the same function, that call's time;
+     one PyTorch call computes the same function, that call's time; the
+     backward blend and the segment reduce launched twice and bit-equal;
+     the share of (instance, warp) pairs the backward kernel's cull skips,
+     and how many of the pairs it walks hold a passing pixel;
+     the run lengths the segment reduce sees; the segment reduce on
+     adversarial ids (a run of 1e5 rows, empty runs, NaN sentinels);
   8. trainer rehearsal: ``python -m tpusplat_torch.trainer --synthetic``
      for 30 steps at 128x128; the loss must fall.
 The line before the last is the ``{"kernels": [...]}`` summary; the last
@@ -40,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -64,6 +74,10 @@ GRAD_FIELDS = ("means", "log_scales", "quats", "opacities", "sh")
 PARITY = dict(n=100_000, width=800, height=800)
 GRAD = dict(n=6000, width=128, height=128)
 GARDEN = dict(n=1_400_000, width=1920, height=1080)
+# Tiles whose warps in the backward kernel are 32 consecutive pixels: a warp
+# spans rows from the middle of one (12x8), or lies in one row away from its
+# start (64x1).
+ROW_MAJOR_TILES = ((12, 8), (64, 1))
 REHEARSAL = ["--synthetic", "--steps", "30", "--width", "128", "--height", "128",
              "--n-init", "2000", "--log-every", "10", "--densify-every", "10"]
 
@@ -166,7 +180,11 @@ def random_rows(torch, gauss_id, n, seed):
 def pair_counts(torch, attr, starts, ends, tiles_x, row0, width, crop_h, cfg, tb=32):
     """(visited, passing, contributing) (instance, pixel) pairs of the blend
     walk over the pixels inside the output: the data-dependent work of the
-    backward kernel's bound."""
+    backward kernel's bound; and the (instance, warp) pairs in which some
+    pixel passes, the ones the backward kernel must sum (its warps are
+    ``warp_pixels``)."""
+    from tpusplat_torch.ops.rasterize import warp_pixels
+
     num_tiles = starts.shape[0]
     npx = cfg.tile_w * cfg.tile_h
     dev = attr.device
@@ -174,7 +192,8 @@ def pair_counts(torch, attr, starts, ends, tiles_x, row0, width, crop_h, cfg, tb
     lin = torch.arange(npx, device=dev)
     lx, ly = lin % cfg.tile_w, lin // cfg.tile_w
     counts = (ends - starts).long()
-    totals = torch.zeros(3, dtype=torch.int64, device=dev)
+    totals = torch.zeros(4, dtype=torch.int64, device=dev)
+    lanes = warp_pixels(cfg.tile_w, cfg.tile_h).flatten().to(dev)
     batch_k = torch.nn.functional.pad(counts, (0, -num_tiles % tb)).reshape(-1, tb)
     for bi, k in enumerate(batch_k.max(dim=1).values.tolist()):
         tiles = torch.arange(bi * tb, min((bi + 1) * tb, num_tiles), device=dev)
@@ -197,9 +216,66 @@ def pair_counts(torch, attr, starts, ends, tiles_x, row0, width, crop_h, cfg, tb
             seen = valid[..., None] & inside[:, None, :]
             ok = seen & (power <= 0) & (alpha >= cfg.alpha_min)
             t_incl = t_acc[:, None, :] * torch.cumprod(torch.where(ok, 1 - alpha, 1.0), dim=1)
-            totals += torch.stack([seen.sum(), ok.sum(), (ok & (t_incl >= cfg.t_min)).sum()])
+            live_warps = ok[..., lanes].reshape(*ok.shape[:2], npx // 32, 32).any(-1)
+            totals += torch.stack([seen.sum(), ok.sum(), (ok & (t_incl >= cfg.t_min)).sum(),
+                                   live_warps.sum()])
             t_acc = t_incl[:, -1, :]
     return [int(v) for v in totals.tolist()]
+
+
+def cull_counts(torch, attr, tile_id, tiles_x, row0, cfg):
+    """(instance, warp) pairs of the backward walk, and how many of them the
+    backward kernel's cull skips: the instance's box (``pass_extent_plain``)
+    misses the rectangle of the warp's pixels (``warp_pixels``). Counted
+    over every instance of the ranges, as if no tile stopped early."""
+    from tpusplat_torch.ops.rasterize import pass_extent_plain, warp_pixels
+
+    tw, th = cfg.tile_w, cfg.tile_h
+    wp = warp_pixels(tw, th).to(attr.device)
+    wx, wy = wp % tw, wp // tw
+    x = (tile_id % tiles_x).long()[:, None] * tw
+    y = ((tile_id // tiles_x).long()[:, None] + row0) * th
+    h = pass_extent_plain(attr[2:5].T, attr[5], cfg.alpha_min)
+    uvx, uvy = attr[0][:, None], attr[1][:, None]
+    culled = (uvx - h[:, :1] > (x + wx.amax(1)).float()) \
+        | (uvx + h[:, :1] < (x + wx.amin(1)).float()) \
+        | (uvy - h[:, 1:] > (y + wy.amax(1)).float()) \
+        | (uvy + h[:, 1:] < (y + wy.amin(1)).float())
+    return culled.numel(), int(culled.sum())
+
+
+def adversarial_slab(torch, attr, alpha_min, seed):
+    """A copy of the slab that stresses the backward kernel's cull: a third
+    of the instances at opacity alpha_min x (1 +- 1e-4), whose pass extent
+    shrinks to about a pixel, and a quarter with b = 0.999 sqrt(ac), near
+    singular."""
+    g = torch.Generator(device=attr.device).manual_seed(seed)
+    u = torch.rand(attr.shape[1], generator=g, device=attr.device)
+    sign = torch.where(torch.rand(attr.shape[1], generator=g, device=attr.device) < 0.5,
+                       -1.0, 1.0)
+    adv = attr.clone()
+    adv[5] = torch.where(u < 1 / 3, alpha_min * (1 + 1e-4 * sign), attr[5])
+    thin = 0.999 * torch.sqrt(attr[2] * attr[4]) * torch.where(attr[3] < 0, -1.0, 1.0)
+    adv[3] = torch.where((u >= 1 / 3) & (u < 1 / 3 + 1 / 4), thin, attr[3])
+    return adv
+
+
+def adversarial_ids(torch, n, dev, seed):
+    """Sorted gradient rows for n Gaussians that stress the segment reduce:
+    0-5 rows a Gaussian, a third of the runs empty, one run of 1e5 rows and
+    1e5 sentinel rows (id n, NaN) at the end. The values are multiples of
+    2^-6 in [-1, 1], so every partial sum is exact in float32 and any order
+    of the adds gives the same sums. Returns (rows, gid, bounds)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    counts = torch.randint(0, 6, (n,), generator=g, device=dev)
+    counts = torch.where(torch.rand(n, generator=g, device=dev) < 1 / 3, 0, counts)
+    counts[n // 2] = 100_000
+    ids = torch.arange(n + 1, dtype=torch.int32, device=dev)
+    gid = torch.cat([torch.repeat_interleave(ids[:n], counts),
+                     torch.full((100_000,), n, dtype=torch.int32, device=dev)])
+    rows = torch.randint(-64, 65, (9, gid.shape[0]), generator=g, device=dev) / 64.0
+    rows = torch.where(gid[None, :] < n, rows, float("nan"))
+    return rows, gid, torch.searchsorted(gid, ids, out_int32=True)
 
 
 def phase_parity(torch, dev):
@@ -254,6 +330,19 @@ def phase_parity(torch, dev):
     d_attr_p = rasterize.backward_blend_plain(*bw_args)
     live = int(b_gpu.num_instances)
     err_bw = check_rows("backward blend", d_attr[:, :live], d_attr_p[:, :live])
+    del d_attr_p
+
+    # The same on the adversarial slab, through its own forward.
+    adv = adversarial_slab(torch, attr, cfg.alpha_min, seed=4)
+    fw_adv = (adv, b_gpu.tile_start, b_gpu.tile_end, tiles_x, 0, w, h, cfg_p)
+    img_a, tmap_a, _ = rasterize.forward_blend(*fw_adv)
+    bw_adv = (adv, b_gpu.tile_start, b_gpu.tile_end, img_a, tmap_a, d_img, d_tmap, tiles_x,
+              0, w, h, cfg_p)
+    err_adv = check_rows("backward blend (adversarial slab)",
+                         rasterize.backward_blend(*bw_adv)[:, :live],
+                         rasterize.backward_blend_plain(*bw_adv)[:, :live])
+    err_rows = {f"{tw}x{th}": backward_row_major(torch, params, cam, cfg, tw, th)
+                for tw, th in ROW_MAJOR_TILES}
 
     # Segment reduce against index_add_, on the real ids with standard-normal
     # rows and NaN in the sentinel slots.
@@ -265,7 +354,37 @@ def phase_parity(torch, dev):
     log(phase="parity_100k", n=n, width=w, height=h, capacity=cap, num_instances=live,
         max_tile_count=max_count, emission="bit-equal", bin_and_sort="bit-equal vs CPU",
         forward_max_abs_err_image=err_img, forward_max_abs_err_transmittance=err_t,
-        backward_max_norm_err=err_bw, segment_reduce_max_abs_err=err_seg)
+        backward_max_norm_err=err_bw, backward_adversarial_max_norm_err=err_adv,
+        backward_row_major_max_norm_err=err_rows, segment_reduce_max_abs_err=err_seg)
+
+
+def backward_row_major(torch, params, cam, cfg, tile_w, tile_h):
+    """The backward kernel against its plain version on tiles that do not
+    split into 8 x 4 warps, where its warps are 32 consecutive pixels (the
+    row-major path of csrc/rasterize_backward.cu) and its cull tests their
+    rectangle. Returns the largest normalised error."""
+    from tpusplat_torch.ops import binning, rasterize
+    from tpusplat_torch.ops.preprocess import preprocess
+
+    w, h = cam.width, cam.height
+    cfg = dataclasses.replace(cfg, tile_w=tile_w, tile_h=tile_h)
+    pg = preprocess(params, cam, cfg)
+    cfg = dataclasses.replace(cfg, capacity=int(pg.ntiles.sum()))
+    binned = binning.bin_and_sort(pg, w, h, cfg)
+    if int(binned.overflow):
+        fail(f"capacity overflow at 100k, {tile_w}x{tile_h} tiles")
+    attr = rasterize.pack_instances(pg, binned)
+    starts, ends = binned.tile_start, binned.tile_end
+    cfg = dataclasses.replace(cfg, max_per_tile=max(cfg.max_per_tile,
+                                                    int((ends - starts).max())))
+    tiles_x, _ = cfg.tile_grid(w, h)
+    img, tmap, _ = rasterize.forward_blend(attr, starts, ends, tiles_x, 0, w, h, cfg)
+    d_img, d_tmap = seeded_cotangents(torch, img, tmap, seed=6)
+    args = (attr, starts, ends, img, tmap, d_img, d_tmap, tiles_x, 0, w, h, cfg)
+    live = int(binned.num_instances)
+    return check_rows(f"backward blend ({tile_w}x{tile_h} tiles)",
+                      rasterize.backward_blend(*args)[:, :live],
+                      rasterize.backward_blend_plain(*args)[:, :live])
 
 
 def loss_and_grads(torch, params, cam, target, cfg):
@@ -482,6 +601,10 @@ def phase_kernels(torch, dev, params, cam, cfg):
         d_img, d_tmap = seeded_cotangents(torch, img, tmap, seed=2)
         bw_args = (attr, starts, ends, img, tmap, d_img, d_tmap, tiles_x, 0, w, h, cfg_p)
         d_attr = rasterize.backward_blend(*bw_args)
+        check_equal("garden backward blend, two launches", d_attr[:, :live],
+                    rasterize.backward_blend(*bw_args)[:, :live])
+        pairs_iw, culled_iw = cull_counts(torch, attr[:, :live], binned.tile_id[:live],
+                                          tiles_x, 0, cfg)
         r0, nr = tiles_y // 2 - 2, 4
         tsl = slice(r0 * tiles_x, (r0 + nr) * tiles_x)
         psl = slice(r0 * cfg.tile_h, (r0 + nr) * cfg.tile_h)
@@ -490,8 +613,8 @@ def phase_kernels(torch, dev, params, cam, cfg):
         lo, hi = int(starts[tsl][0]), int(ends[tsl][-1])
         d_strip = rasterize.backward_blend(*st_args)
         d_strip_p = rasterize.backward_blend_plain(*st_args)
-        visited, passing, contrib = pair_counts(torch, attr, starts, ends, tiles_x, 0, w, h,
-                                                cfg_p)
+        visited, passing, contrib, live_iw = pair_counts(torch, attr, starts, ends, tiles_x,
+                                                         0, w, h, cfg_p)
         out["backward_blend"] = dict(
             max_abs_err=check_rows("garden backward blend (strip)", d_strip[:, lo:hi],
                                    d_strip_p[:, lo:hi]),
@@ -503,6 +626,9 @@ def phase_kernels(torch, dev, params, cam, cfg):
             plain_scope=f"strip of tile rows {r0}..{r0 + nr - 1} ({hi - lo} instances)",
             library_ms=None, pairs=dict(visited=visited, passing=passing,
                                         contributing=contrib),
+            cull=dict(instance_warp_pairs=pairs_iw, culled=culled_iw,
+                      culled_share=culled_iw / max(pairs_iw, 1), live=live_iw,
+                      walked_dead=pairs_iw - culled_iw - live_iw),
             # slab in and out, tile ranges, img, T and both cotangents
             bound=bound(4 * (18 * live + 2 * tiles_x * tiles_y + 8 * w * h),
                         visited * BLEND_FLOPS_PER_PAIR
@@ -519,10 +645,22 @@ def phase_kernels(torch, dev, params, cam, cfg):
                               segment_reduce.segment_reduce(r_rows, gid_s, bounds),
                               segment_reduce.segment_reduce_plain(r_rows, gid_s, bounds),
                               atol=1e-4)
+        check_equal("garden segment reduce, two launches",
+                    segment_reduce.segment_reduce(rows, gid_s, bounds),
+                    segment_reduce.segment_reduce(rows, gid_s, bounds))
+        a_rows, a_gid, a_bounds = adversarial_ids(torch, n, dev, seed=5)
+        a_err = check_close("garden segment reduce (adversarial ids)",
+                            segment_reduce.segment_reduce(a_rows, a_gid, a_bounds),
+                            segment_reduce.segment_reduce_plain(a_rows, a_gid, a_bounds),
+                            atol=1e-4)
+        del a_rows, a_gid, a_bounds
+        runs = (bounds[1:] - bounds[:-1]).float()
         keep = gid_s < n
         k_ids, k_rows = gid_s[keep].long(), rows[:, keep].contiguous()
         out["segment_reduce"] = dict(
-            max_abs_err=seg_err,
+            max_abs_err=seg_err, adversarial_max_abs_err=a_err,
+            run_lengths=dict(mean=float(runs.mean()),
+                             p99=float(torch.quantile(runs, 0.99)), max=int(runs.max())),
             ms=cuda_ms(torch, lambda: segment_reduce.segment_reduce(rows, gid_s, bounds),
                        reps=20),
             plain_ms=cuda_ms(torch, lambda: segment_reduce.segment_reduce_plain(
@@ -531,8 +669,9 @@ def phase_kernels(torch, dev, params, cam, cfg):
                 1, k_ids, k_rows), reps=20),
             gather_grad_ms=cuda_ms(torch, lambda: rasterize.gather_grad(
                 d_attr, binned.gauss_id, n), reps=20),
-            # 9 values and the id per live row, the bounds; 9 sums per Gaussian
-            bound=bound(4 * (10 * live + (n + 1) + 9 * n), 9 * live))
+            # 9 values per live row (the ids are not read), the bounds; 9 sums
+            # per Gaussian
+            bound=bound(4 * (9 * live + (n + 1) + 9 * n), 9 * live))
     for v in out.values():
         v["bound_ms"], v["bound_by"] = v.pop("bound")
     log(phase="kernels_garden", num_instances=live, max_tile_count=max_count, kernels=out)
@@ -567,10 +706,25 @@ def main() -> int:
     return run(torch, torch.device("cuda"), torch.cuda.get_device_name(0), nvidia_smi())
 
 
-def run(torch, dev, kind: str, smi: str) -> int:
+def garden_inputs(torch, dev):
+    """bench.py's garden configuration: (params, the 3-camera orbit, cfg
+    with the capacity from a preprocess probe x1.05)."""
     from tpusplat_torch import RenderConfig, look_at_camera, random_scene
-    from tpusplat_torch.ops import _build
     from tpusplat_torch.ops.preprocess import preprocess
+
+    n, w, h = GARDEN["n"], GARDEN["width"], GARDEN["height"]
+    params = random_scene(n, seed=0, sh_degree=3, scale_range=(0.002, 0.02), extent=4.0,
+                          device=dev)
+    cams = orbit_cameras(look_at_camera, [0.0, 0.5, 9.0], [0.0, 0.0, 0.0], w, h, 60.0, 3,
+                         dev)
+    cfg = RenderConfig(sh_degree=3, capacity_mult=4, max_per_tile=4096, tight_radius=True)
+    with torch.no_grad():
+        needed = int(preprocess(params, cams[0], cfg).ntiles.sum())
+    return params, cams, dataclasses.replace(cfg, capacity=int(needed * 1.05))
+
+
+def run(torch, dev, kind: str, smi: str) -> int:
+    from tpusplat_torch.ops import _build
 
     # Parity precision: the plain blend's colour sum is a matmul, and the
     # SSIM filter a cuDNN convolution.
@@ -581,26 +735,21 @@ def run(torch, dev, kind: str, smi: str) -> int:
 
     t0 = time.perf_counter()
     report = _build.build(verbose=True)
+    ptxas = {k: [ln.strip() for ln in v["log"].splitlines()
+                 if "registers" in ln or "spill" in ln] for k, v in report.items()}
     log(phase="build", seconds=time.perf_counter() - t0,
-        kernels={k: dict(seconds=v["seconds"],
-                         ptxas=[ln.strip() for ln in v["log"].splitlines()
-                                if "registers" in ln or "spill" in ln])
-                 for k, v in report.items()})
+        kernels={k: dict(seconds=v["seconds"], ptxas=ptxas[k]) for k, v in report.items()})
+    spills = [ln for lines in ptxas.values() for ln in lines
+              if re.search(r"[1-9]\d* bytes spill", ln)]
+    if spills:
+        fail(f"register spills: {spills}")
 
     with torch.no_grad():
         phase_parity(torch, dev)
     phase_grad_6k(torch, dev)
 
-    # ---- garden (bench.py's garden configuration) ----
-    n, w, h = GARDEN["n"], GARDEN["width"], GARDEN["height"]
-    params = random_scene(n, seed=0, sh_degree=3, scale_range=(0.002, 0.02), extent=4.0,
-                          device=dev)
-    cams = orbit_cameras(look_at_camera, [0.0, 0.5, 9.0], [0.0, 0.0, 0.0], w, h, 60.0, 3,
-                         dev)
-    cfg = RenderConfig(sh_degree=3, capacity_mult=4, max_per_tile=4096, tight_radius=True)
+    params, cams, cfg = garden_inputs(torch, dev)
     with torch.no_grad():
-        needed = int(preprocess(params, cams[0], cfg).ntiles.sum())
-        cfg = dataclasses.replace(cfg, capacity=int(needed * 1.05))
         cfg, serving = phase_garden_serving(torch, dev, params, cams, cfg)
     cfg, training = phase_garden_training(torch, dev, params, cams, cfg)
     timed = phase_kernels(torch, dev, params, cams[0], cfg)

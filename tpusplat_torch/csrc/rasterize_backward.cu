@@ -21,7 +21,7 @@
 //   accumulated up to and including it:
 //     dalpha += dc.col T - (D - dc.incl) / f,   dcol_c = alpha T dc_c
 //   (D - dc.incl is the colour of everything behind it, the suffix identity
-//   of rasterize_pallas.py:444-456). Through alpha = min(0.99, op e^power)
+// of rasterize_pallas.py:444-456). Through alpha = min(0.99, op e^power)
 //   the gradient passes only where op e^power < 0.99; then
 //   dpower = dalpha op e^power, dop = dalpha e^power, and the conic and uv
 //   gradients follow from power = -0.5 (a dx^2 + c dy^2) - b dx dy.
@@ -33,17 +33,6 @@
 // Every row of [start, end) is written, with 0 past the stop; slots outside
 // every range (past the last instance) are not written.
 //
-// Design: one block per tile, one thread per pixel, as the forward kernel.
-// Each pass stages kBatch instances in shared memory. Each thread computes
-// its pixel's 9 terms for one instance; each warp sums them with a fixed
-// butterfly of shuffles (skipped, as zeros, where no pixel of the warp passes
-// the test) and writes its partials to shared memory; after the pass, the
-// threads sum each instance's per-warp partials in warp order and write the
-// rows coalesced. No atomics: each instance belongs to exactly one tile, and
-// the sum order is fixed, so the result is deterministic. The TPU kernel's
-// 128-lane granules, boundary-granule carry and ping-pong writeback were
-// workarounds for DMA stores and have no counterpart here.
-//
 // Bound: operations, counted per (instance, pixel) pair from the code: the
 // forward's 13 operations of the test on every visited pair; 34 more on a
 // passing pair (4 for f, T f, 1/f and the T term; 2 for dpower and dop; 9
@@ -51,10 +40,55 @@
 // the tile, one add a term, as any reduction needs); 16 more on a pair that
 // contributes colour (its weight, the dot dc.col, the running dot, the
 // suffix term and the 3 colour gradients). chip_smoke.py counts the three
-// kinds of pairs of its inputs for the bound. The per-instance butterfly (45
-// shuffles and adds a warp for 9 sums of 32 pixels, where 9 x 31 adds would
-// do) is the cost the design adds beyond that; skipping warps with no
-// passing pixel keeps it to the Gaussian's footprint.
+// kinds of pairs of its inputs for the bound. What costs is not these
+// operations but the warp instructions issued for pairs that fail the test:
+// at the garden shapes about 86% of the visited pairs fail, and a warp that
+// walks an instance pays the exp, the vote and the sums of its 32 lanes
+// whether or not any lane passes.
+//
+// Design: one block per tile, one thread per pixel, as the forward kernel.
+// A warp's 32 pixels are an 8 x 4 block of the tile where the tile divides
+// into such blocks (a 16 x 16 tile into 2 x 4), else 32 consecutive pixels
+// in row-major order: a square block meets fewer Gaussians' footprints than
+// a strip of the same area. Each pass stages kBatch instances in shared
+// memory, and with each the box of pixels at which it can pass the test
+// (below). Each warp takes the batch 32 instances at a time: one vote of
+// its lanes, lane i testing instance i's box against the rectangle of the
+// warp's pixels, leaves the instances the warp must walk, and it walks only
+// those, in order. For each, every thread computes its pixel's 9 terms;
+// where any lane passes, the warp sums the 9 terms by a transposed
+// reduction (at each step a lane keeps half of its values and sends the
+// other half to its partner: 12 shuffles for 9 sums, where 9 butterflies
+// take 45), after which 9 lanes hold the 9 sums and store them to shared
+// memory together, and the warp sets the instance's bit in its live mask.
+// After the pass, the threads sum each instance's partials over the warps
+// whose bit is set, in warp order, and write the rows coalesced. No
+// atomics: each instance belongs to exactly one tile, and the sum order is
+// fixed, so the result is deterministic. A warp that skips an instance
+// leaves T and the running dot as they are, which is what the instance
+// does to them when no pixel of the warp passes. The TPU kernel's 128-lane
+// granules, boundary-granule carry and ping-pong writeback were workarounds
+// for DMA stores and have no counterpart here.
+//
+// The cull is conservative: it never drops a pair that passes in float32.
+// A pair passes where op e^power >= alpha_min and power <= 0. With
+// tau = ln(op / alpha_min) and power = -q/2, q = d^T C d, C = [[a, b],
+// [b, c]], d = (dx, dy), that is q <= 2 tau; for C positive definite the
+// ellipse q <= Q has the box |dx| <= sqrt(Q c / det), |dy| <= sqrt(Q a / det),
+// det = a c - b^2. The kernel evaluates power in float32: its error is at
+// most a few units of 2^-24 times S/2, S = |a| dx^2 + |c| dy^2 + 2 |b dx dy|,
+// and S <= kappa q with kappa = (1 + |rho|) / (1 - |rho|), rho = b / sqrt(ac);
+// exp and the opacity product err by under 1e-6 relative. So a pair that
+// passes in float32 has q <= Q = 2 (tau + kTauSlack) / (1 - kPowerErr kappa),
+// with kTauSlack and kPowerErr several times those errors. det, tau and the
+// extents are computed in double from the float32 inputs, and each
+// half-extent gets a margin of one pixel plus kRelMargin of itself, which
+// covers the float32 rounding of dx and of the box's edges for pixel
+// coordinates below 2^24. The cull is off (an infinite box) where an input
+// is not finite, alpha_min <= 0, C is not positive definite, or
+// kPowerErr kappa > 1/2 (b^2 too close to a c for float32 to tell); the box
+// is empty where op <= 0 or tau < -kTauSlack, since no pixel then passes. A
+// NaN edge culls nothing.
 
 #include <cuda_runtime.h>
 
@@ -64,12 +98,77 @@ namespace {
 
 constexpr int kRows = 9;
 constexpr int kBatch = 128;  // instances staged per pass
+constexpr int kWords = kBatch / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr double kTauSlack = 1e-5;
+constexpr double kPowerErr = 1e-6;
+constexpr double kRelMargin = 1e-3;
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ bool finite(float x) { return fabsf(x) <= 3.402823466e38f; }
+
+// The half-extents of the pixel offsets (dx, dy) at which an instance can
+// pass the test, margin included (see the note above): +inf where the cull
+// is off, -inf where no pixel passes. The formula of
+// tpusplat_torch/ops/rasterize.py::pass_extent_plain.
+__device__ __forceinline__ float2 pass_extent(float ca, float cb, float cc, float op,
+                                              float alpha_min) {
+  const float inf = __int_as_float(0x7f800000);
+  if (!(finite(ca) && finite(cb) && finite(cc) && finite(op)) || !(alpha_min > 0.0f)) {
+    return make_float2(inf, inf);
+  }
+  if (!(op > 0.0f)) return make_float2(-inf, -inf);  // op e^power <= 0 < alpha_min
+  const double a = ca, b = cb, c = cc;
+  const double det = a * c - b * b;
+  if (!(a > 0.0 && c > 0.0 && det > 0.0)) return make_float2(inf, inf);
+  const double tau = log(static_cast<double>(op) / static_cast<double>(alpha_min));
+  if (tau < -kTauSlack) return make_float2(-inf, -inf);
+  const double rho = fabs(b) / sqrt(a * c);
+  const double kappa = (1.0 + rho) / (1.0 - rho);
+  if (kPowerErr * kappa > 0.5) return make_float2(inf, inf);
+  const double q = 2.0 * (fmax(tau, 0.0) + kTauSlack) / (1.0 - kPowerErr * kappa);
+  return make_float2(static_cast<float>(sqrt(q * c / det) * (1.0 + kRelMargin) + 1.0),
+                     static_cast<float>(sqrt(q * a / det) * (1.0 + kRelMargin) + 1.0));
+}
+
+// One step of the transposed reduction: v[0, m) becomes v[0, h), h = (m+1)/2.
+// The upper lane of each pair (lane ^ o) keeps v[h, m) (and zeros past m),
+// the lower keeps v[0, h), and each adds the half its partner sends.
+template <int M>
+__device__ __forceinline__ void keep_half(float (&v)[kRows], int o, bool upper) {
+  constexpr int H = (M + 1) / 2;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
+  for (int i = 0; i < H; ++i) {
+    const float lo = v[i];
+    const float hi = i + H < M ? v[i + H] : 0.0f;
+    v[i] = (upper ? hi : lo) + __shfl_xor_sync(kFull, upper ? lo : hi, o);
+  }
+}
+
+// Sums each of the 9 values v over the warp's 32 lanes in 12 shuffles.
+// Returns the sum the lane holds, with *row set to which of the 9 it is, or
+// to -1 where the lane holds padding or is the upper lane of a pair (lanes
+// l and l ^ 1 hold the same sum; the lower one reports it).
+__device__ __forceinline__ float warp_sum9(float (&v)[kRows], int lane, int* row) {
+  keep_half<9>(v, 16, lane & 16);
+  keep_half<5>(v, 8, lane & 8);
+  keep_half<3>(v, 4, lane & 4);
+  keep_half<2>(v, 2, lane & 2);
+  v[0] += __shfl_xor_sync(kFull, v[0], 1);
+  // Which of the 9 the lane holds: the kept halves, [s, s + c) of them real.
+  int s = 0, c = kRows;
+  const int bits[4] = {16, 8, 4, 2};
+  const int halves[4] = {5, 3, 2, 1};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (lane & bits[i]) {
+      s += halves[i];
+      c -= halves[i];
+    } else {
+      c = min(c, halves[i]);
+    }
+  }
+  *row = (c > 0 && !(lane & 1)) ? s : -1;
+  return v[0];
 }
 
 __global__ void backward_kernel(const float* __restrict__ attr, long long stride,
@@ -83,21 +182,47 @@ __global__ void backward_kernel(const float* __restrict__ attr, long long stride
                                 const float* __restrict__ d_tmap,
                                 float* __restrict__ d_attr) {
   extern __shared__ float smem[];
-  float* batch = smem;                  // [kRows][kBatch] staged attributes
-  float* part = smem + kRows * kBatch;  // [nwarps][kRows][kBatch] per-warp sums
   const int npx = blockDim.x;
   const int nwarps = npx >> 5;
+  float* batch = smem;                  // [kRows][kBatch] staged attributes
+  float* box = batch + kRows * kBatch;  // [4][kBatch] x lo, x hi, y lo, y hi of passing
+  float* part = box + 4 * kBatch;       // [nwarps][kBatch][kRows] per-warp sums
+  unsigned* live = reinterpret_cast<unsigned*>(part + nwarps * kBatch * kRows);
+  // live: [nwarps][kWords], bit j: the warp wrote partials for instance j
   const int t = blockIdx.x;
   const int p = threadIdx.x;
   const int warp = p >> 5;
   const int lane = p & 31;
   const int tx = t % tiles_x;
   const int ty = t / tiles_x;
-  const int ix = tx * tile_w + p % tile_w;  // image column
-  const int iy = ty * tile_h + p / tile_w;  // row of the output (strip-local)
+  // The thread's pixel (lx, ly) in the tile and the rectangle [x0, x1] x
+  // [y0, y1] that holds its warp's pixels (see the note above).
+  int lx, ly, x0, x1, y0, y1;
+  if (tile_w % 8 == 0 && tile_h % 4 == 0) {
+    x0 = warp % (tile_w / 8) * 8;
+    y0 = warp / (tile_w / 8) * 4;
+    x1 = x0 + 7;
+    y1 = y0 + 3;
+    lx = x0 + (lane & 7);
+    ly = y0 + (lane >> 3);
+  } else {
+    const int p0 = p - lane, p1 = p0 + 31;
+    y0 = p0 / tile_w;
+    y1 = p1 / tile_w;
+    x0 = y0 == y1 ? p0 % tile_w : 0;
+    x1 = y0 == y1 ? p1 % tile_w : tile_w - 1;
+    lx = p % tile_w;
+    ly = p / tile_w;
+  }
+  const int ix = tx * tile_w + lx;  // image column
+  const int iy = ty * tile_h + ly;  // row of the output (strip-local)
   const float px = static_cast<float>(ix);
   const float py = static_cast<float>(row0 * tile_h + iy);  // global pixel row
   const bool inside = ix < width && iy < crop_h;
+  const float wx0 = static_cast<float>(tx * tile_w + x0);
+  const float wx1 = static_cast<float>(tx * tile_w + x1);
+  const float wy0 = static_cast<float>((row0 + ty) * tile_h + y0);
+  const float wy1 = static_cast<float>((row0 + ty) * tile_h + y1);
 
   // Cotangents and saved outputs; a pixel outside the crop has cotangent 0.
   float dcr = 0.0f, dcg = 0.0f, dcb = 0.0f, d_fin = 0.0f, dtf = 0.0f;
@@ -119,64 +244,88 @@ __global__ void backward_kernel(const float* __restrict__ attr, long long stride
     const int cnt = min(kBatch, end - base);
     __syncthreads();  // the previous pass's batch and partials are consumed
     for (int i = p; i < cnt; i += npx) {
+      float v[kRows];
 #pragma unroll
-      for (int k = 0; k < kRows; ++k) batch[k * kBatch + i] = attr[k * stride + base + i];
+      for (int k = 0; k < kRows; ++k) {
+        v[k] = attr[k * stride + base + i];
+        batch[k * kBatch + i] = v[k];
+      }
+      const float2 h = pass_extent(v[2], v[3], v[4], v[5], alpha_min);
+      box[0 * kBatch + i] = v[0] - h.x;
+      box[1 * kBatch + i] = v[0] + h.x;
+      box[2 * kBatch + i] = v[1] - h.y;
+      box[3 * kBatch + i] = v[1] + h.y;
     }
     __syncthreads();
-    for (int j = 0; j < cnt; ++j) {
-      const float uvx = batch[0 * kBatch + j];
-      const float uvy = batch[1 * kBatch + j];
-      const float ca = batch[2 * kBatch + j];
-      const float cb = batch[3 * kBatch + j];
-      const float cc = batch[4 * kBatch + j];
-      const BlendPair q = blend_pair(uvx, uvy, ca, cb, cc, batch[5 * kBatch + j], px, py,
-                                     alpha_max);
-      float g[kRows];
+    for (int j0 = 0; j0 < cnt; j0 += 32) {
+      const int jl = j0 + lane;
+      // Walked where the box meets the rectangle; a NaN edge culls nothing.
+      const bool walk = jl < cnt && !(box[0 * kBatch + jl] > wx1 ||
+                                      box[1 * kBatch + jl] < wx0 ||
+                                      box[2 * kBatch + jl] > wy1 || box[3 * kBatch + jl] < wy0);
+      unsigned todo = __ballot_sync(kFull, walk);
+      unsigned live_bits = 0;
+      while (todo) {
+        const int jb = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int j = j0 + jb;
+        const float uvx = batch[0 * kBatch + j];
+        const float uvy = batch[1 * kBatch + j];
+        const float ca = batch[2 * kBatch + j];
+        const float cb = batch[3 * kBatch + j];
+        const float cc = batch[4 * kBatch + j];
+        const BlendPair q = blend_pair(uvx, uvy, ca, cb, cc, batch[5 * kBatch + j], px, py,
+                                       alpha_max);
+        float g[kRows];
 #pragma unroll
-      for (int k = 0; k < kRows; ++k) g[k] = 0.0f;
-      bool live = false;
-      if (q.power <= 0.0f && q.alpha >= alpha_min) {
-        const float f = 1.0f - q.alpha;
-        const float t_incl = T * f;
-        const float rf = 1.0f / f;
-        float dalpha = dtf * rf;
-        if (t_incl >= t_min) {
-          const float w = q.alpha * T;
-          const float dccol = dcr * batch[6 * kBatch + j] + dcg * batch[7 * kBatch + j] +
-                              dcb * batch[8 * kBatch + j];
-          sdot += w * dccol;
-          dalpha += dccol * T - (d_fin - sdot) * rf;
-          g[6] = w * dcr;
-          g[7] = w * dcg;
-          g[8] = w * dcb;
+        for (int k = 0; k < kRows; ++k) g[k] = 0.0f;
+        bool pixel_live = false;
+        if (q.power <= 0.0f && q.alpha >= alpha_min) {
+          const float f = 1.0f - q.alpha;
+          const float t_incl = T * f;
+          const float rf = 1.0f / f;
+          float dalpha = dtf * rf;
+          if (t_incl >= t_min) {
+            const float w = q.alpha * T;
+            const float dccol = dcr * batch[6 * kBatch + j] + dcg * batch[7 * kBatch + j] +
+                                dcb * batch[8 * kBatch + j];
+            sdot += w * dccol;
+            dalpha += dccol * T - (d_fin - sdot) * rf;
+            g[6] = w * dcr;
+            g[7] = w * dcg;
+            g[8] = w * dcb;
+          }
+          T = t_incl;
+          if (q.alpha_raw < alpha_max) {
+            const float dpower = dalpha * q.alpha_raw;
+            g[5] = dalpha * q.epow;
+            g[2] = -0.5f * q.dx * q.dx * dpower;
+            g[3] = -q.dx * q.dy * dpower;
+            g[4] = -0.5f * q.dy * q.dy * dpower;
+            g[0] = -(ca * q.dx + cb * q.dy) * dpower;
+            g[1] = -(cc * q.dy + cb * q.dx) * dpower;
+          }
+          pixel_live = inside;
         }
-        T = t_incl;
-        if (q.alpha_raw < alpha_max) {
-          const float dpower = dalpha * q.alpha_raw;
-          g[5] = dalpha * q.epow;
-          g[2] = -0.5f * q.dx * q.dx * dpower;
-          g[3] = -q.dx * q.dy * dpower;
-          g[4] = -0.5f * q.dy * q.dy * dpower;
-          g[0] = -(ca * q.dx + cb * q.dy) * dpower;
-          g[1] = -(cc * q.dy + cb * q.dx) * dpower;
+        if (__any_sync(kFull, pixel_live)) {
+          int row;
+          const float sum = warp_sum9(g, lane, &row);
+          if (row >= 0) part[(warp * kBatch + j) * kRows + row] = sum;
+          live_bits |= 1u << jb;
         }
-        live = inside;
       }
-      if (__any_sync(kFull, live)) {
-#pragma unroll
-        for (int k = 0; k < kRows; ++k) g[k] = warp_sum(g[k]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < kRows; ++k) part[(warp * kRows + k) * kBatch + j] = g[k];
-      }
+      if (lane == 0) live[warp * kWords + (j0 >> 5)] = live_bits;
     }
     __syncthreads();
     for (int i = p; i < kRows * cnt; i += npx) {
       const int k = i / cnt;
       const int j = i - k * cnt;
       float s = 0.0f;
-      for (int w = 0; w < nwarps; ++w) s += part[(w * kRows + k) * kBatch + j];
+      for (int w = 0; w < nwarps; ++w) {
+        if (live[w * kWords + (j >> 5)] >> (j & 31) & 1u) {
+          s += part[(w * kBatch + j) * kRows + k];
+        }
+      }
       d_attr[k * stride + base + j] = s;
     }
     done = base + cnt;
@@ -200,7 +349,9 @@ extern "C" int tpusplat_backward(const void* attr, long long stride, const void*
                                  const void* img, const void* tmap, const void* d_img,
                                  const void* d_tmap, void* d_attr, void* stream) {
   const int npx = tile_w * tile_h;
-  const size_t smem = sizeof(float) * kRows * kBatch * (1 + npx / 32);
+  const int nwarps = npx / 32;
+  const size_t smem = sizeof(float) * kBatch * (kRows + 4 + nwarps * kRows) +
+                      sizeof(unsigned) * nwarps * kWords;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

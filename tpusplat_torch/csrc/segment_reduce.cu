@@ -8,24 +8,34 @@
 // (parallel/compact_grad.py) are not ported.
 //
 // What it computes: rows [9, stride] float32 hold one gradient row per
-// instance slot (uv.x, uv.y, conic a, b, c, opacity, r, g, b), sorted by the
-// Gaussian id gid [R] int32; bounds [n + 1] int32 gives each id g its run
+// instance slot (uv.x, uv.y, conic a, b, c, opacity, r, g, b), sorted by
+// Gaussian id; bounds [n + 1] int32 gives each id g its run
 // [bounds[g], bounds[g+1]). out [9, n] float32 (the layout of the gathered
-// table) gets, for each g, the sum of the rows of its run whose id equals g.
-// A row with an id outside [0, n) -- a sentinel slot past the last instance,
-// whose values are stale memory the backward blend never wrote -- is skipped
-// by a select (never multiplied by 0, which would turn a NaN into NaN).
+// table) gets, for each g, the sum of the rows of its run. The ids are not
+// read: bounds from a left searchsorted of the sorted ids put every row of
+// g's run at id g, and every row with an id outside [0, n) -- the sentinel
+// slots past the last instance, whose values are stale memory the backward
+// blend never wrote -- before bounds[0] or from bounds[n] on, outside every
+// run.
 //
-// Design: one warp per Gaussian. Its lanes read the run's rows strided by 32
-// (coalesced along each of the 9 rows), keep 9 partial sums, and combine them
-// with a fixed butterfly of shuffles. No atomics: every output belongs to one
-// warp, and the order of the sum is fixed, so the result is deterministic.
-// A warp suits the garden shapes' runs (about 3 rows on average, thousands
-// for the largest Gaussians) without a second pass.
+// Bound: bytes. It must read 9 x 4 B per row in a run and the bounds, and
+// write 9 x 4 B per Gaussian: at the garden shapes (4.2M rows, 1.4M
+// Gaussians) about 0.21 GB, 0.06 ms at 3.35 TB/s; the 9 adds per row are
+// far below the rate.
 //
-// Bound: bytes. It must read 10 x 4 B per row (9 values and the id) and write
-// 9 x 4 B per Gaussian: at the garden shapes (4.2M rows, 1.4M Gaussians)
-// 0.22 GB, 0.07 ms at 3.35 TB/s; the 9 adds per row are far below the rate.
+// Design: a warp owns 32 consecutive Gaussians, as a segment of the TPU
+// kernel owned GB consecutive ids over one contiguous row range. Lane i sums
+// Gaussian g0 + i over its run alone. The runs of neighbouring lanes are
+// neighbouring in the sorted rows, so each of the warp's loads of a row k
+// falls in one short span and coalesces, and the 9 sums go out as 9 stores
+// of 32 consecutive floats. At about 3 rows a Gaussian this keeps every lane
+// busy, where a warp per Gaussian (the first version) idled 29 of 32 lanes
+// and paid a 45-shuffle butterfly per Gaussian. A run longer than kLongRun
+// rows would hold its warp for that many serial steps, so its lane skips it;
+// after the short runs, the warp takes the long runs one by one in lane
+// order and sums each with all 32 lanes (rows strided by 32, a fixed
+// butterfly). No atomics, and every sum has a fixed order: the result is
+// bit-equal from launch to launch.
 
 #include <cuda_runtime.h>
 
@@ -34,46 +44,83 @@ namespace {
 constexpr int kRows = 9;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
+// A run longer than this many rows is summed by its whole warp. Garden's
+// runs average 3 rows and reach 16, so none of them takes the warp path.
+constexpr int kLongRun = 32;
 
 __global__ void segment_reduce_kernel(const float* __restrict__ rows, long long stride,
-                                      const int* __restrict__ gid,
                                       const int* __restrict__ bounds, int n,
                                       float* __restrict__ out) {
-  const long long w = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x;
   const int lane = threadIdx.x & 31;
-  if (w >= n) return;  // uniform across the warp
-  const int g = static_cast<int>(w);
-  const int lo = bounds[g];
-  const int hi = bounds[g + 1];
+  const long long gl = first + threadIdx.x;
+  const bool own = gl < n;
+  const int g = static_cast<int>(own ? gl : 0);
+  const int lo = own ? bounds[g] : 0;
+  const int hi = own ? bounds[g + 1] : 0;
+  const bool is_long = hi - lo > kLongRun;
+
   float acc[kRows];
 #pragma unroll
   for (int k = 0; k < kRows; ++k) acc[k] = 0.0f;
-  for (int r = lo + lane; r < hi; r += 32) {
-    if (gid[r] == g) {  // g lies in [0, n): any other id is dropped here
+  if (!is_long) {
+    int r = lo;
+    for (; r + 1 < hi; r += 2) {  // two rows a step: 18 loads in flight
+      float a[kRows], b[kRows];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        a[k] = rows[k * stride + r];
+        b[k] = rows[k * stride + r + 1];
+      }
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) acc[k] = (acc[k] + a[k]) + b[k];
+    }
+    if (r < hi) {
 #pragma unroll
       for (int k = 0; k < kRows; ++k) acc[k] += rows[k * stride + r];
     }
   }
+
+  // The long runs, one at a time, with the whole warp.
+  unsigned pending = __ballot_sync(kFull, is_long);
+  while (pending) {
+    const int src = __ffs(pending) - 1;
+    pending &= pending - 1;
+    const int a_lo = __shfl_sync(kFull, lo, src);
+    const int a_hi = __shfl_sync(kFull, hi, src);
+    float s[kRows];
 #pragma unroll
-  for (int k = 0; k < kRows; ++k) {
+    for (int k = 0; k < kRows; ++k) s[k] = 0.0f;
+    for (int r = a_lo + lane; r < a_hi; r += 32) {
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc[k] += __shfl_xor_sync(kFull, acc[k], o);
+      for (int k = 0; k < kRows; ++k) s[k] += rows[k * stride + r];
+    }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s[k] += __shfl_xor_sync(kFull, s[k], o);
+    }
+    if (lane == src) {
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) acc[k] = s[k];
+    }
   }
+
+  if (own) {
 #pragma unroll
-  for (int k = 0; k < kRows; ++k) {
-    if (lane == k) out[static_cast<long long>(k) * n + g] = acc[k];
+    for (int k = 0; k < kRows; ++k) out[static_cast<long long>(k) * n + g] = acc[k];
   }
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success). n >= 1.
-extern "C" int tpusplat_segment_reduce(const void* rows, long long stride, const void* gid,
-                                       const void* bounds, int n, void* out, void* stream) {
-  const long long threads = 32LL * n;
-  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+extern "C" int tpusplat_segment_reduce(const void* rows, long long stride, const void* bounds,
+                                       int n, void* out, void* stream) {
+  const unsigned blocks = static_cast<unsigned>((static_cast<long long>(n) + kThreads - 1) /
+                                                kThreads);
   segment_reduce_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rows), stride, static_cast<const int*>(gid),
-      static_cast<const int*>(bounds), n, static_cast<float*>(out));
+      static_cast<const float*>(rows), stride, static_cast<const int*>(bounds), n,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

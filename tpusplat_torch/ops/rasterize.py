@@ -256,6 +256,55 @@ def backward_blend_plain(attr, starts, ends, img, tmap, d_img, d_tmap, tiles_x: 
     return d_attr
 
 
+# The backward kernel's cull (csrc/rasterize_backward.cu's note): slack on
+# tau = ln(op / alpha_min), bound on float32's relative error in power,
+# relative margin of a half-extent (added to one pixel).
+CULL_TAU_SLACK, CULL_POWER_ERR, CULL_REL_MARGIN = 1e-5, 1e-6, 1e-3
+
+
+def pass_extent_plain(conic: torch.Tensor, opacity: torch.Tensor, alpha_min: float):
+    """Half-extents [N, 2] float32 (|dx|, |dy|) of the pixel offsets
+    ``uv - pixel`` at which each instance can pass the blend's test
+    (``op exp(power) >= alpha_min``, ``power <= 0``), margin included: the
+    formula by which the backward kernel culls (instance, warp) pairs.
+    +inf where the cull is off (an input not finite, ``alpha_min <= 0``, a
+    conic that is not positive definite or too near singular for float32),
+    -inf where no pixel passes. ``conic`` [N, 3] (a, b, c), ``opacity`` [N].
+    Only tests and ``chip_smoke.py`` call it."""
+    am = torch.tensor(alpha_min, dtype=torch.float32).item()  # the kernel takes float32
+    a, b, c = (conic[:, i].double() for i in range(3))
+    op = opacity.double()
+    det = a * c - b * b
+    tau = torch.log(op / am)
+    rho = b.abs() / torch.sqrt(a * c)
+    kappa = (1 + rho) / (1 - rho)
+    q = 2 * (tau.clamp_min(0) + CULL_TAU_SLACK) / (1 - CULL_POWER_ERR * kappa)
+    h = torch.stack([torch.sqrt(q * c / det), torch.sqrt(q * a / det)], dim=-1)
+    h = h * (1 + CULL_REL_MARGIN) + 1
+    inf = torch.tensor(float("inf"), dtype=h.dtype, device=h.device)
+    # The kernel's tests, last to first, so the first that holds decides.
+    for cond, val in ((CULL_POWER_ERR * kappa > 0.5, inf), (tau < -CULL_TAU_SLACK, -inf),
+                      (~((a > 0) & (c > 0) & (det > 0)), inf), (op <= 0, -inf),
+                      (~(torch.isfinite(conic).all(-1) & torch.isfinite(opacity))
+                       | (am <= 0), inf)):
+        h = torch.where(cond[:, None], val, h)
+    return h.float()
+
+
+def warp_pixels(tile_w: int, tile_h: int) -> torch.Tensor:
+    """[P / 32, 32] int64: the pixels (``y * tile_w + x`` in the tile) of
+    each warp of the backward kernel, lane by lane: 8 x 4 blocks where the
+    tile divides into them, else 32 consecutive pixels. Only tests and
+    ``chip_smoke.py`` call it."""
+    npx = tile_w * tile_h
+    if tile_w % 8 or tile_h % 4:
+        return torch.arange(npx).reshape(-1, 32)
+    warp, lane = torch.arange(npx // 32)[:, None], torch.arange(32)[None, :]
+    x = warp % (tile_w // 8) * 8 + lane % 8
+    y = warp // (tile_w // 8) * 4 + lane // 8
+    return y * tile_w + x
+
+
 def backward_blend(attr, starts, ends, img, tmap, d_img, d_tmap, tiles_x: int, row0: int,
                    width: int, crop_h: int, cfg: RenderConfig):
     """Gradient of the forward blend: d_attr [9, C] from the slab, the tile

@@ -25,7 +25,7 @@ ROWS = 9  # gradient rows the kernel sums (uv.x, uv.y, conic a/b/c, opacity, r/g
 def _kernel():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return _build.function("segment_reduce", "tpusplat_segment_reduce",
-                           [p, ll, p, p, i, p, p])
+                           [p, ll, p, i, p, p])
 
 
 def segment_reduce_plain(rows: torch.Tensor, gid: torch.Tensor, bounds: torch.Tensor):
@@ -46,7 +46,10 @@ def segment_reduce(rows: torch.Tensor, gid: torch.Tensor, bounds: torch.Tensor):
     ``gid`` [R] int32 must be sorted ascending and ``bounds`` [N + 1] int32
     must hold, for each id g, the first row whose id is >= g (so
     ``[bounds[g], bounds[g+1])`` is g's run; ``torch.searchsorted`` of the
-    ids). Rows with ids outside [0, N) contribute nothing."""
+    ids). Rows with ids outside [0, N) contribute nothing. The kernel reads
+    only ``bounds``, never ``gid``: it sums each run as it stands, so
+    ``bounds`` that break this contract give wrong sums on the card, where
+    the plain version, which keys on ``gid``, would not."""
     if rows.device.type == "cpu":
         return segment_reduce_plain(rows, gid, bounds)
     return _segment_reduce_cuda(rows, gid, bounds)
@@ -70,8 +73,8 @@ def _segment_reduce_cuda(rows, gid, bounds):
     out = torch.empty((k, n), dtype=torch.float32, device=rows.device)
     if n == 0:
         return out
-    err = _kernel()(rows.data_ptr(), rows.stride(0), gid.data_ptr(), bounds.data_ptr(), n,
-                    out.data_ptr(), _build.stream_ptr(rows.device))
+    err = _kernel()(rows.data_ptr(), rows.stride(0), bounds.data_ptr(), n, out.data_ptr(),
+                    _build.stream_ptr(rows.device))
     _build.check(err, "segment reduce kernel")
     LAUNCHES += 1
     return out
