@@ -39,9 +39,35 @@ Phases, one output line each; any failure exits non-zero:
      the run lengths the segment reduce sees; the segment reduce on
      adversarial ids (a run of 1e5 rows, empty runs, NaN sentinels);
   8. trainer rehearsal: ``python -m tpusplat_torch.trainer --synthetic``
-     for 30 steps at 128x128; the loss must fall.
+     for 30 steps at 128x128; the loss must fall;
+  9. sharded_emulated: one strip of the tile-sharded path at the garden
+     shapes (tile = 4, 17 tile rows a strip, strip_gauss_mult 2.0: strip
+     compaction active, or the run fails) through
+     ``exchange_render_emulated``, forward and backward, the launch counters
+     reset just before and read just after; the segment reduce's
+     streamed-target and multi-range kernels against their plain versions
+     on that strip's ids (atol 1e-4), launched twice and bit-equal, timed
+     beside their bytes bounds; the strip's split (binning, forward kernel,
+     backward kernel, gid sort, reduce, owner reduce);
+ 10. sharded_two_process: two processes on the one card (gloo through host
+     memory: NCCL cannot run two ranks on one card), mesh 1x2, 100k
+     Gaussians at 800x800, SH3: one ``sharded_train_step`` with the dense
+     exchange, one with the compact one, and ``sharded_train_step_overlap``
+     with the ring and with the all-reduce, each from the same state, each
+     against the one-process ``train_step`` (loss rtol 1e-5; means, sh and
+     opacities after the update atol 2e-6, 3e-6 after an overlap step, the
+     JAX package's bounds; Adam's moments, which hold the gradient's
+     magnitude, within 1e-4 of their largest; compact against dense 3e-6
+     and 1e-5), with zero overflow and compaction active.
 The line before the last is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --nccl
+
+runs only phase 10's steps with a card per rank over NCCL (the path of
+``trainer --mesh`` under torchrun), on the meshes 1x4 and 2x2 (one camera
+per data rank, against the one-process step on the same batch); it needs
+four cards.
 """
 
 from __future__ import annotations
@@ -80,6 +106,12 @@ GARDEN = dict(n=1_400_000, width=1920, height=1080)
 ROW_MAJOR_TILES = ((12, 8), (64, 1))
 REHEARSAL = ["--synthetic", "--steps", "30", "--width", "128", "--height", "128",
              "--n-init", "2000", "--log-every", "10", "--densify-every", "10"]
+# The tile-sharded phases: tile shards of the emulated garden strip (17 tile
+# rows of 68) and its stream multiplier; the two-process mesh.
+SHARDED_TILE, SHARDED_STRIP, SHARDED_GAUSS_MULT = 4, 1, 2.0
+TWO_PROCESS_MESH = (1, 2)
+# ``--nccl``: the meshes over a card per rank.
+NCCL_MESHES, NCCL_CARDS = [(1, 4), (2, 2)], 4
 
 
 def log(**kw):
@@ -122,6 +154,10 @@ def check_close(name, got, want, atol, rtol=0.0) -> float:
 
 
 def check_equal(name, got, want):
+    if got is None or want is None:  # an optional field (stream_ids)
+        if got is not want:
+            fail(f"{name}: one side is None")
+        return
     if got.shape != want.shape or not bool((got.cpu() == want.cpu()).all()):
         diff = (got.cpu() != want.cpu()).sum().item() if got.shape == want.shape else "shape"
         fail(f"{name}: not bit-equal ({diff} differ)")
@@ -309,6 +345,16 @@ def phase_parity(torch, dev):
         check_equal(f"bin_and_sort {f.name}", getattr(b_gpu, f.name), getattr(b_cpu, f.name))
     if int(b_gpu.overflow):
         fail("capacity overflow at 100k")
+    # Strip compaction (the second of four strips), CUDA against the CPU.
+    nrows = -(-tiles_y // 4)
+    gcap = cfg.strip_gauss_capacity(n, nrows, tiles_y)
+    strips = [binning.bin_and_sort(p, w, h, cfg, nrows, nrows, cap, gauss_capacity=gcap)
+              for p in (pg, pg_cpu)]
+    if strips[0].stream_ids is None:
+        fail("strip compaction not active at 100k")
+    for f in dataclasses.fields(strips[0]):
+        check_equal(f"compacted bin_and_sort {f.name}", getattr(strips[0], f.name),
+                    getattr(strips[1], f.name))
 
     attr = rasterize.pack_instances(pg, b_gpu)
     max_count = int((b_gpu.tile_end - b_gpu.tile_start).max())
@@ -353,6 +399,8 @@ def phase_parity(torch, dev):
     err_seg = check_close("segment reduce", seg, seg_p, atol=1e-4)
     log(phase="parity_100k", n=n, width=w, height=h, capacity=cap, num_instances=live,
         max_tile_count=max_count, emission="bit-equal", bin_and_sort="bit-equal vs CPU",
+        compacted_strip=dict(gauss_capacity=gcap,
+                             gauss_overflow=int(strips[0].gauss_overflow)),
         forward_max_abs_err_image=err_img, forward_max_abs_err_transmittance=err_t,
         backward_max_norm_err=err_bw, backward_adversarial_max_norm_err=err_adv,
         backward_row_major_max_norm_err=err_rows, segment_reduce_max_abs_err=err_seg)
@@ -678,6 +726,320 @@ def phase_kernels(torch, dev, params, cam, cfg):
     return out
 
 
+def phase_sharded_emulated(torch, dev, params, cam, cfg):
+    """One garden strip of the tile-sharded path through the compact
+    exchange's one-process emulation, and its two reduce modes timed."""
+    from tpusplat_torch.ops import binning, emission, rasterize
+    from tpusplat_torch.ops import segment_reduce as sr
+    from tpusplat_torch.ops.preprocess import preprocess
+    from tpusplat_torch.parallel import compact_grad as cg
+    from tpusplat_torch.parallel.sharded import strip_geometry
+
+    n = params.num_gaussians
+    w, h = cam.width, cam.height
+    cfg = dataclasses.replace(cfg, strip_gauss_mult=SHARDED_GAUSS_MULT, capacity=None)
+    tiles_x, tiles_y = cfg.tile_grid(w, h)
+    nrows, cap_shard = strip_geometry(n // SHARDED_TILE, h, cfg, SHARDED_TILE)
+    row0 = SHARDED_STRIP * nrows
+    gcap = cfg.strip_gauss_capacity(n, nrows, tiles_y)
+    if gcap is None or gcap >= n or nrows >= tiles_y:
+        fail(f"sharded_emulated: strip compaction is not active (cap {gcap}, N {n})")
+    with torch.no_grad():
+        pg = preprocess(params, cam, cfg)
+        visible = int(binning.strip_visible(pg, row0, nrows).sum())
+        st = cg.CompactStatic(cfg=cfg, width=w, height=h, nrows=nrows,
+                              cap_shard=cap_shard, gcap=gcap,
+                              n_total=n, n_local=n // SHARDED_TILE, n_shards=SHARDED_TILE)
+        table = cg.pack_exchange_table(pg)[None]
+    crop_h = nrows * cfg.tile_h
+    g = torch.Generator(device=dev).manual_seed(8)
+    cot = torch.randn((1, crop_h, w, 3), generator=g, device=dev)
+
+    # The path, its launch counters reset just before and read just after.
+    table_in = table.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    emission.LAUNCHES = rasterize.FORWARD_LAUNCHES = rasterize.BACKWARD_LAUNCHES = 0
+    sr.LAUNCHES = sr.TARGETS_LAUNCHES = sr.MULTIRANGE_LAUNCHES = 0
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    img, counters = cg.exchange_render_emulated(table_in, st, row0)
+    (d_table,) = torch.autograd.grad((img * cot).sum(), table_in)
+    e1.record()
+    e1.synchronize()
+    launches = dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES,
+                    backward_blend=rasterize.BACKWARD_LAUNCHES,
+                    segment_reduce_targets=sr.TARGETS_LAUNCHES,
+                    segment_reduce_multirange=sr.MULTIRANGE_LAUNCHES)
+    if not all(launches.values()):
+        fail(f"sharded_emulated: a kernel of the path was not launched ({launches})")
+    counters = dict(zip(("capacity_overflow", "tile_overflow", "gauss_overflow",
+                         "a2a_overflow"), counters[0].tolist()))
+    if counters["capacity_overflow"] or not bool(torch.isfinite(img).all()) \
+            or not bool(torch.isfinite(d_table).all()) or float(img.max()) <= 0:
+        fail(f"sharded_emulated: strip not finite, black or overflowed ({counters})")
+
+    # The same strip, stage by stage: the inputs of the two reduce modes.
+    with torch.no_grad():
+        tbl = table[0]
+        _, _, res = cg.strip_forward(tbl, row0, st)
+        attr, gid, starts, ends, simg, tmap, stream_ids = res
+        d_attr = rasterize.backward_blend(attr, starts, ends, simg, tmap, cot[0].contiguous(),
+                                          torch.zeros_like(tmap), tiles_x, row0, w, crop_h, cfg)
+        rows, gid_s = cg.sort_by_id(d_attr, gid)
+        targets = cg.bucket_targets(stream_ids, st)
+        k0 = torch.arange(SHARDED_TILE, dtype=torch.int32, device=dev) * st.n_local
+        lid = cg.owner_local_ids(targets, k0, st)
+        g_red = sr.segment_reduce_targets(rows, gid_s, targets, n)
+        r_rows, _ = cg.sort_by_id(random_rows(torch, gid, n, seed=9), gid)
+        live = int((gid_s < n).sum())
+        m = targets.shape[0]
+        r_red = sr.segment_reduce_targets(r_rows, gid_s, targets, n)
+        err_t = check_close("streamed-target reduce", r_red,
+                            sr.segment_reduce_targets_plain(r_rows, gid_s, targets, n), atol=1e-4)
+        check_equal("streamed-target reduce, two launches", g_red,
+                    sr.segment_reduce_targets(rows, gid_s, targets, n))
+        live_x = int((lid < st.n_local).sum())
+        err_m = check_close("multi-range reduce",
+                            sr.segment_reduce_multirange(r_red, lid, st.n_local, SHARDED_TILE),
+                            sr.segment_reduce_multirange_plain(r_red, lid, st.n_local),
+                            atol=1e-4)
+        check_equal("multi-range reduce, two launches",
+                    sr.segment_reduce_multirange(g_red, lid, st.n_local, SHARDED_TILE),
+                    sr.segment_reduce_multirange(g_red, lid, st.n_local, SHARDED_TILE))
+        out = {}
+        out["segment_reduce_targets"] = dict(
+            max_abs_err=err_t,
+            ms=cuda_ms(torch, lambda: sr.segment_reduce_targets(rows, gid_s, targets, n),
+                       reps=20),
+            plain_ms=cuda_ms(torch, lambda: sr.segment_reduce_targets_plain(
+                rows, gid_s, targets, n), reps=5),
+            library_ms=None,
+            # 9 values per live row, the targets; 9 sums per target
+            bound=bound(4 * (9 * live + m + 9 * m), 9 * live))
+        out["segment_reduce_multirange"] = dict(
+            max_abs_err=err_m,
+            ms=cuda_ms(torch, lambda: sr.segment_reduce_multirange(
+                g_red, lid, st.n_local, SHARDED_TILE), reps=20),
+            plain_ms=cuda_ms(torch, lambda: sr.segment_reduce_multirange_plain(
+                g_red, lid, st.n_local), reps=5),
+            library_ms=None,
+            # 9 values per live row, the ids; 9 sums per local Gaussian
+            bound=bound(4 * (9 * live_x + m + 9 * st.n_local), 9 * live_x))
+        for v in out.values():
+            v["bound_ms"], v["bound_by"] = v.pop("bound")
+
+        split = dict(
+            binning=cuda_ms(torch, lambda: binning.bin_and_sort(
+                cg.pg_from_table(tbl), w, h, cfg, row0, nrows, st.cap_shard,
+                gauss_capacity=gcap), reps=5),
+            forward_kernel=cuda_ms(torch, lambda: rasterize.forward_blend(
+                attr, starts, ends, tiles_x, row0, w, crop_h, cfg), reps=5),
+            backward_kernel=cuda_ms(torch, lambda: rasterize.backward_blend(
+                attr, starts, ends, simg, tmap, cot[0].contiguous(), torch.zeros_like(tmap),
+                tiles_x, row0, w, crop_h, cfg), reps=5),
+            gid_sort=cuda_ms(torch, lambda: cg.sort_by_id(d_attr, gid), reps=5),
+            reduce=cuda_ms(torch, lambda: sr.segment_reduce_targets(
+                rows, gid_s, cg.bucket_targets(stream_ids, st), n), reps=5),
+            owner_reduce=cuda_ms(torch, lambda: sr.segment_reduce_multirange(
+                g_red, cg.owner_local_ids(targets, k0, st), st.n_local, SHARDED_TILE), reps=5))
+    log(phase="sharded_emulated", n=n, width=w, height=h, tile_shards=SHARDED_TILE,
+        strip_rows=[row0, row0 + nrows], compaction=dict(active=True, gauss_capacity=gcap,
+                                                         strip_visible=visible),
+        capacity=st.cap_shard, num_instances=live, bucket_cap=cg.a2a_bucket_cap(st),
+        targets=m, owner_rows=live_x, counters=counters, path_ms=e0.elapsed_time(e1),
+        launches=launches, split_ms=split,
+        kernels={k: {kk: vv for kk, vv in v.items()} for k, v in out.items()})
+    for k in out:
+        out[k]["launches"] = launches[k]
+    return out
+
+
+def one_process_step(state, cams, targets, cfg, opt):
+    """The one-process reference of a sharded step on a camera batch: each
+    camera's loss and gradients through ``train_step``'s pieces, their
+    means, then its gated Adam update (``train_step`` itself for one
+    camera)."""
+    from tpusplat_torch.train import step as tstep
+
+    losses, grads = [], []
+    for cam, tgt in zip(cams, targets):
+        loss, aux, leaves = tstep.step_forward(state, cam, tgt, cfg)
+        losses.append(loss.detach())
+        grads.append(tstep.step_backward(loss, leaves))
+    mean = {k: sum(g[k] for g in grads) / len(grads) for k in grads[0]}
+    return tstep.apply_gradients(state, sum(losses) / len(losses), aux, mean, opt)
+
+
+def state_errors(got, want):
+    """Max abs error of each parameter field, and of each Adam moment
+    normalised by the wanted moment's largest magnitude (after one step
+    mu = 0.1 g and nu = 0.001 g^2: the gradient's magnitude, which the first
+    update, -lr sign(g), does not show)."""
+    out = dict(params={f: float((getattr(got.params, f) - getattr(want.params, f)).abs().max())
+                       for f in GRAD_FIELDS})
+    for m in ("mu", "nu"):
+        out[m] = {f: float((getattr(got, m)[f] - getattr(want, m)[f]).abs().max()
+                           / getattr(want, m)[f].abs().max()) for f in GRAD_FIELDS}
+    return out
+
+
+def check_state_errors(what, errors, param_atol, moment_tol, fields=GRAD_FIELDS):
+    """Fail unless the parameters of ``fields`` are within ``param_atol``
+    and every moment within ``moment_tol`` (:func:`state_errors`)."""
+    for group, tol, names in (("params", param_atol, fields), ("mu", moment_tol, GRAD_FIELDS),
+                              ("nu", moment_tol, GRAD_FIELDS)):
+        for f in names:
+            if not errors[group][f] <= tol:
+                fail(f"{what}: {group} {f} off by {errors[group][f]} (bound {tol})")
+
+
+SHARDED_STEPS = ("dense", "compact", "overlap", "overlap_psum")
+
+
+def _multi_process_worker(rank, dev, out_dir, meshes, scene):
+    """One rank of a multi-process phase: for each mesh, the sharded steps
+    of ``SHARDED_STEPS`` from one state, timed after a warm-up; rank 0 also
+    takes the one-process step on the same camera batch (one camera per
+    data rank) and saves each step's errors against it."""
+    import torch
+
+    from tpusplat_torch import RenderConfig, look_at_camera, random_scene
+    from tpusplat_torch.ops import segment_reduce as sr
+    from tpusplat_torch.parallel import sharded
+    from tpusplat_torch.parallel.mesh import make_render_mesh
+    from tpusplat_torch.train import step as tstep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    n, w, h = scene["n"], scene["width"], scene["height"]
+    params = random_scene(n, seed=0, sh_degree=3, scale_range=(0.004, 0.04), extent=4.0,
+                          device=dev)
+    cfg = RenderConfig(sh_degree=3, strip_gauss_mult=1.5)
+    compact = dataclasses.replace(cfg, grad_exchange="compact")
+    opt = tstep.make_optimizer(scene_extent=4.0)
+    full = tstep.create_train_state(params)
+    res = dict(backend=torch.distributed.get_backend(), device=str(dev))
+    for dims in meshes:
+        mesh = make_render_mesh(*dims)
+        batch = dims[0]
+        cams = orbit_cameras(look_at_camera, [0.0, 0.5, 9.0], [0.0, 0.0, 0.0], w, h, 60.0,
+                             batch, dev)
+        targets = torch.rand((batch, h, w, 3), generator=torch.Generator().manual_seed(7)).to(dev)
+        state = sharded.shard_state(full, mesh)
+        steps = dict(
+            dense=(sharded.sharded_train_step, cfg, {}),
+            compact=(sharded.sharded_train_step, compact, {}),
+            overlap=(sharded.sharded_train_step_overlap, compact, dict(grad_reduce="ring")),
+            overlap_psum=(sharded.sharded_train_step_overlap, compact, dict(grad_reduce="psum")))
+        whole, out = {}, {}
+        for name in SHARDED_STEPS:
+            fn, c, kw = steps[name]
+            fn(state, cams, targets, c, opt, mesh, **kw)  # warm-up
+            sync()
+            sr.LAUNCHES = sr.TARGETS_LAUNCHES = sr.MULTIRANGE_LAUNCHES = 0
+            t0 = time.perf_counter()
+            new, metrics = fn(state, cams, targets, c, opt, mesh, **kw)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            whole[name] = sharded.gather_state(new, mesh)
+            out[name] = dict(ms=ms, step=int(new.step),
+                             launches=[sr.LAUNCHES, sr.TARGETS_LAUNCHES, sr.MULTIRANGE_LAUNCHES],
+                             metrics={k: float(v) for k, v in metrics.items()})
+        if rank == 0:
+            ref, m = one_process_step(full, cams, targets, cfg, opt)
+            for name in SHARDED_STEPS:
+                out[name]["errors"] = state_errors(whole[name], ref)
+            out["compact_vs_dense"] = state_errors(whole["compact"], whole["dense"])
+            out["single"] = dict(loss=float(m["loss"]), step=int(ref.step))
+        res["x".join(map(str, dims))] = out
+        del whole
+    if rank == 0:
+        torch.save(res, f"{out_dir}/multi_process.pt")
+
+
+# Bounds of the sharded steps against the one-process step, the JAX
+# package's: the monolithic step's parameters (tests/test_sharded.py:
+# 130-135), the overlap step's (tests/test_collectives.py:92-97,
+# tests/test_compact_grad.py:133-135), compact against dense
+# (tests/test_compact_grad.py:162-164); and of Adam's moments, normalised
+# by their largest magnitude.
+SHARDED_LOSS_RTOL, SHARDED_PARAM_ATOL, OVERLAP_PARAM_ATOL = 1e-5, 2e-6, 3e-6
+COMPACT_PARAM_ATOL, SHARDED_MOMENT_TOL, COMPACT_MOMENT_TOL = 3e-6, 1e-4, 1e-5
+
+
+def phase_multi_process(torch, phase, meshes, device, backend, scene=PARITY):
+    """Ranks of the meshes ``meshes`` in one process each (as many as the
+    largest mesh has), started together: each mesh's dense, compact and
+    overlap steps against the one-process step. ``device`` "cuda:0" puts
+    every rank on the one card (gloo, staging through host memory); "cuda"
+    gives rank r the card cuda:r (NCCL)."""
+    import pathlib
+    import shutil
+
+    from tpusplat_torch import RenderConfig
+    from tpusplat_torch.parallel.launch import spawn
+    from tpusplat_torch.parallel.sharded import rows_per_shard
+
+    out_dir = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke" / phase
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    cfg = RenderConfig(sh_degree=3, strip_gauss_mult=1.5)
+    tiles_y = cfg.tile_grid(scene["width"], scene["height"])[1]
+    gcaps = {}
+    for d, t in meshes:
+        nrows = rows_per_shard(scene["height"], cfg, t)
+        gcaps[f"{d}x{t}"] = gcap = cfg.strip_gauss_capacity(scene["n"], nrows, tiles_y)
+        if gcap is None or gcap >= scene["n"]:
+            fail(f"{phase} {d}x{t}: strip compaction is not active (cap {gcap})")
+    world = max(d * t for d, t in meshes)
+    t0 = time.perf_counter()
+    spawn(_multi_process_worker, world, (str(out_dir), meshes, scene),
+          init_file=str(out_dir / "init"), device=device, backend=backend, threads=4)
+    seconds = time.perf_counter() - t0
+    res = torch.load(out_dir / "multi_process.pt", weights_only=False)
+    log(phase=phase, n=scene["n"], width=scene["width"], height=scene["height"],
+        backend=res["backend"], device=device,
+        staging="host memory (gloo)" if res["backend"] == "gloo" else "none",
+        gauss_capacity=gcaps, compaction_active=True, seconds=seconds,
+        meshes={k: dict(loss_single=v["single"]["loss"],
+                        steps={s: dict(ms=v[s]["ms"], loss=v[s]["metrics"]["loss"],
+                                       gauss_overflow=v[s]["metrics"]["gauss_overflow"],
+                                       a2a_overflow=v[s]["metrics"]["a2a_overflow"],
+                                       launches_dense_targets_multirange=v[s]["launches"],
+                                       errors=v[s]["errors"])
+                               for s in SHARDED_STEPS},
+                        compact_vs_dense=v["compact_vs_dense"])
+                for k, v in res.items() if isinstance(v, dict)})
+    for key, out in ((k, v) for k, v in res.items() if isinstance(v, dict)):
+        single = out["single"]
+        for name in SHARDED_STEPS:
+            r = out[name]
+            ovf = {k: v for k, v in r["metrics"].items() if k != "loss" and v}
+            if ovf or r["step"] != 1:
+                fail(f"{phase} {key} {name}: overflow {ovf}, step {r['step']}")
+            if not math.isclose(r["metrics"]["loss"], single["loss"], rel_tol=SHARDED_LOSS_RTOL):
+                fail(f"{phase} {key} {name}: loss {r['metrics']['loss']} against "
+                     f"{single['loss']}")
+            # The JAX bound names three fields: a near-zero gradient of the
+            # others may flip its sign, and the first update with it.
+            check_state_errors(f"{phase} {key} {name} against the one-process step",
+                               r["errors"], OVERLAP_PARAM_ATOL if name.startswith("overlap")
+                               else SHARDED_PARAM_ATOL, SHARDED_MOMENT_TOL,
+                               fields=("means", "sh", "opacities"))
+            if device != "cpu" and name != "dense" and not (r["launches"][1]
+                                                            and r["launches"][2]):
+                fail(f"{phase} {key} {name}: the compact exchange did not launch both "
+                     f"reduce modes ({r['launches']})")
+        check_state_errors(f"{phase} {key} compact vs dense", out["compact_vs_dense"],
+                           COMPACT_PARAM_ATOL, COMPACT_MOMENT_TOL)
+    return res
+
+
 def phase_trainer_rehearsal(torch, dev):
     """The trainer CLI for 30 steps at 128x128 on the card; the loss falls."""
     import pathlib
@@ -696,14 +1058,41 @@ def phase_trainer_rehearsal(torch, dev):
         final_eval=summary["evals"][-1], step=summary["step"])
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--nccl", action="store_true",
+                   help=f"only the sharded steps over NCCL, a card per rank, on meshes "
+                        f"{NCCL_MESHES} (needs {NCCL_CARDS} cards)")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the GPU",
               file=sys.stderr)
         return 1
-    return run(torch, torch.device("cuda"), torch.cuda.get_device_name(0), nvidia_smi())
+    kind, smi = torch.cuda.get_device_name(0), nvidia_smi()
+    if args.nccl:
+        return run_nccl(torch, kind, smi)
+    return run(torch, torch.device("cuda"), kind, smi)
+
+
+def run_nccl(torch, kind: str, smi: str) -> int:
+    """``--nccl``: the sharded steps with a card per rank over NCCL, the
+    path of ``trainer --mesh`` under torchrun, against the one-process
+    step; no other phase."""
+    if torch.cuda.device_count() < NCCL_CARDS:
+        print(f"chip_smoke --nccl: needs {NCCL_CARDS} cards, found "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    start(torch, kind, smi)
+    phase_multi_process(torch, "sharded_nccl", NCCL_MESHES, "cuda", "nccl")
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
 
 
 def garden_inputs(torch, dev):
@@ -723,7 +1112,10 @@ def garden_inputs(torch, dev):
     return params, cams, dataclasses.replace(cfg, capacity=int(needed * 1.05))
 
 
-def run(torch, dev, kind: str, smi: str) -> int:
+def start(torch, kind: str, smi: str):
+    """The device line, and every kernel built (in parallel) before any
+    phase, so that ranks started later never build into ``build/`` at
+    once; a register spill fails the run."""
     from tpusplat_torch.ops import _build
 
     # Parity precision: the plain blend's colour sum is a matmul, and the
@@ -744,6 +1136,9 @@ def run(torch, dev, kind: str, smi: str) -> int:
     if spills:
         fail(f"register spills: {spills}")
 
+
+def run(torch, dev, kind: str, smi: str) -> int:
+    start(torch, kind, smi)
     with torch.no_grad():
         phase_parity(torch, dev)
     phase_grad_6k(torch, dev)
@@ -754,6 +1149,11 @@ def run(torch, dev, kind: str, smi: str) -> int:
     cfg, training = phase_garden_training(torch, dev, params, cams, cfg)
     timed = phase_kernels(torch, dev, params, cams[0], cfg)
     phase_trainer_rehearsal(torch, dev)
+    timed.update(phase_sharded_emulated(torch, dev, params, cams[0], cfg))
+    del params
+    torch.cuda.empty_cache()
+    phase_multi_process(torch, "sharded_two_process", [TWO_PROCESS_MESH],
+                        "cuda:0" if dev.type == "cuda" else "cpu", "gloo")
 
     sources = dict(
         emission=("tpusplat_torch/csrc/emission.cu", "tpusplat/ops/emission.py:76"),
@@ -762,18 +1162,26 @@ def run(torch, dev, kind: str, smi: str) -> int:
         backward_blend=("tpusplat_torch/csrc/rasterize_backward.cu",
                         "tpusplat/ops/rasterize_pallas.py:326"),
         segment_reduce=("tpusplat_torch/csrc/segment_reduce.cu",
-                        "tpusplat/ops/rasterize_pallas.py:738"),
+                        "tpusplat/ops/rasterize_pallas.py:738 (dense mode)"),
+        segment_reduce_targets=("tpusplat_torch/csrc/segment_reduce.cu",
+                                "tpusplat/ops/rasterize_pallas.py:738 (streamed-target mode)"),
+        segment_reduce_multirange=("tpusplat_torch/csrc/segment_reduce.cu",
+                                   "tpusplat/ops/rasterize_pallas.py:738 (multi-range mode)"),
     )
     kernels = []
     for name, (source, replaces) in sources.items():
         t = timed[name]
+        # The serving and training kernels count over the garden training
+        # steps; the two sharded modes over the emulated strip's path.
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=training[name], launches_serving=serving.get(name),
+            launches=training[name] if name in training else t["launches"],
+            launches_serving=serving.get(name),
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"]))
-    if any(k["launches"] < len(cams) for k in kernels):
-        fail(f"launch counts {training} below one a step")
+    if any(training[k] < len(cams) for k in training) or \
+            any(k["launches"] < 1 for k in kernels):
+        fail(f"launch counts {training} below one a step, or a sharded mode unlaunched")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

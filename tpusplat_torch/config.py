@@ -45,7 +45,9 @@ class RenderConfig:
         Not ported yet: ``render_stages`` raises ``NotImplementedError``
         when it is set.
       strip_gauss_mult, strip_gauss_margin_rows, grad_exchange,
-        grad_a2a_mult: the tile-sharded knobs, kept for the sharded slice.
+        grad_a2a_mult: the tile-sharded path's knobs (strip compaction's
+        stream cap, the dense or compact gradient exchange and its bucket
+        capacity; :mod:`tpusplat_torch.parallel`).
     """
 
     tile_w: int = 16

@@ -19,8 +19,12 @@ forms).
   * Tile ranges by a left binary search per tile edge: ``end[t] ==
     start[t+1]`` and an empty tile has ``start == end``.
 
-The ``gauss_capacity`` strip compaction and ``stream_ids`` of the JAX
-package are not ported yet (``gauss_overflow`` is always 0 here).
+Strip compaction (``gauss_capacity``, ``binning.py:238-353`` of the JAX
+package): in a row window the depth key marks the Gaussians invisible in
+the strip ``+inf``, so the stable depth sort itself puts the strip's
+Gaussians first, in global depth order; emission then runs over the first
+``gauss_capacity`` of them only, and ``stream_ids`` keeps their ids.
+Instances of visible Gaussians past the cap are ``gauss_overflow``.
 """
 
 from __future__ import annotations
@@ -45,17 +49,23 @@ class BinnedInstances:
     tile_end: torch.Tensor  # [T] int32
     num_instances: torch.Tensor  # 0-d int32 (valid, clamped to C)
     overflow: torch.Tensor  # 0-d int32: instances dropped for capacity
-    gauss_overflow: torch.Tensor  # 0-d int32: always 0 (no compaction yet)
+    gauss_overflow: torch.Tensor  # 0-d int32: instances dropped by the stream cap
+    # Compacted stream (strip compaction only, else None): the ids of the
+    # strip's first ``gauss_capacity`` Gaussians in depth order, the entries
+    # past the strip's visible count set to the sentinel N.
+    stream_ids: torch.Tensor | None = None
 
 
 def expand_instances_sorted(ids, ntiles, x0, y0, bbh, tiles_x: int, capacity: int,
-                            row0: int = 0, n_sentinel: int | None = None):
+                            row0: int = 0, n_sentinel: int | None = None, total_true=None):
     """Plain PyTorch emission from meta already in depth-emission order.
 
     ``ids``, ``ntiles``, ``x0``, ``y0``, ``bbh``: [N] int32 in emission
     order. Returns ``(tile [C], gid [C], min(total, C), overflow,
-    gauss_dropped)`` (int32; the last three 0-d). The plain version of the
-    CUDA emission kernel, on any device.
+    gauss_dropped)`` (int32; the last three 0-d). ``total_true``, where the
+    meta is a compacted stream, is the instance count before compaction:
+    ``gauss_dropped`` is what the stream lost (0 when not given). The plain
+    version of the CUDA emission kernel, on any device.
     """
     n = ids.shape[0]
     if n_sentinel is None:
@@ -79,16 +89,18 @@ def expand_instances_sorted(ids, ntiles, x0, y0, bbh, tiles_x: int, capacity: in
         tile = gid = slots
     tile = torch.where(valid, tile, SENTINEL).to(torch.int32)
     gid = torch.where(valid, gid, n_sentinel).to(torch.int32)
-    return _counters(tile, gid, total, capacity)
+    return _counters(tile, gid, total, capacity, total_true)
 
 
-def _counters(tile, gid, total, capacity: int):
+def _counters(tile, gid, total, capacity: int, total_true=None):
     """The shared tail of both emission routes: (tile, gid, min(total, C),
-    overflow, gauss_dropped) with int32 0-d counters."""
+    overflow, gauss_dropped) with int32 0-d counters; gauss_dropped =
+    ``total_true - total`` (``emission.py:245-247`` of the JAX package)."""
     i32 = torch.int32
+    dropped = (torch.zeros((), dtype=i32, device=tile.device) if total_true is None
+               else (total_true - total).to(i32))
     return (tile, gid, torch.clamp_max(total, capacity).to(i32),
-            torch.clamp_min(total - capacity, 0).to(i32),
-            torch.zeros((), dtype=i32, device=tile.device))
+            torch.clamp_min(total - capacity, 0).to(i32), dropped)
 
 
 def _window_meta(pg: ProcessedGaussians, row0: int, nrows: int | None):
@@ -120,14 +132,26 @@ def expand_instances(pg: ProcessedGaussians, tiles_x: int, capacity: int, row0: 
                                    tiles_x, capacity, row0, n)
 
 
-def depth_sorted_meta(pg: ProcessedGaussians, row0: int = 0, nrows: int | None = None):
+def strip_visible(pg: ProcessedGaussians, row0: int, nrows: int) -> torch.Tensor:
+    """[N] bool: the Gaussians that cover a tile of the row window
+    [row0, row0 + nrows) (the strip-clipped visibility of the JAX package)."""
+    y0 = pg.aabb[:, 1].clamp(row0, row0 + nrows)
+    y1 = pg.aabb[:, 3].clamp(row0, row0 + nrows)
+    return (pg.ntiles > 0) & (y1 > y0)
+
+
+def depth_sorted_meta(pg: ProcessedGaussians, row0: int = 0, nrows: int | None = None,
+                      visible: torch.Tensor | None = None):
     """Stable depth sort over Gaussians (invisible -> +inf key) carrying the
     emission meta as payloads. Returns (ids, ntiles, x0, y0, bbh), [N]
     int32 each, in depth-emission order — the inputs of the emission
-    kernel. Ordering does not differentiate (the reference's sort is
-    forward-only)."""
+    kernel. ``visible`` ([N] bool) defaults to ``pg.ntiles > 0``; strip
+    compaction passes :func:`strip_visible`. Ordering does not
+    differentiate (the reference's sort is forward-only)."""
     x0, y0, bbh, ntiles = _window_meta(pg, row0, nrows)
-    key = torch.where(pg.ntiles > 0, pg.depth.detach(),
+    if visible is None:
+        visible = pg.ntiles > 0
+    key = torch.where(visible, pg.depth.detach(),
                       torch.full_like(pg.depth.detach(), float("inf")))
     order = torch.sort(key, stable=True).indices
     return (order.to(torch.int32), ntiles[order], x0[order], y0[order], bbh[order])
@@ -141,8 +165,16 @@ def bin_and_sort(
     row0: int = 0,
     nrows: int | None = None,
     capacity: int | None = None,
+    gauss_capacity: int | None = None,
 ) -> BinnedInstances:
     """Bin instances for the full image or a window of ``nrows`` tile rows.
+
+    ``gauss_capacity`` (a row window only): emit from the first
+    ``gauss_capacity`` strip-visible Gaussians in depth order. The port
+    compacts whenever ``gauss_capacity < N`` and the window is narrower than
+    the frame; the JAX package compacts only where its Pallas emission's
+    8-bit packed meta fits (``pallas_emission_ok``, a TPU limit), so the
+    results equal the JAX ones with ``use_pallas=True``.
 
     Routes by device: emission runs the CUDA kernel on a CUDA tensor and
     :func:`expand_instances_sorted` on a CPU tensor."""
@@ -152,11 +184,20 @@ def bin_and_sort(
     n = pg.ntiles.shape[0]
     if capacity is None:
         capacity = cfg.instance_capacity(n)
+    compact = (gauss_capacity is not None and gauss_capacity < n and nrows is not None
+               and nrows < tiles_y)
 
-    ids_d, nt_d, x0_d, y0_d, bbh_d = depth_sorted_meta(pg, row0, nrows)
+    visible = strip_visible(pg, row0, nrows) if compact else None
+    meta = depth_sorted_meta(pg, row0, nrows, visible)
     num_tiles = tiles_x * (tiles_y if nrows is None else nrows)
+    stream_ids = total_true = None
+    if compact:
+        total_true = meta[1].sum()
+        meta = tuple(t[:gauss_capacity] for t in meta)
+        slots = torch.arange(gauss_capacity, device=visible.device)
+        stream_ids = torch.where(slots < visible.sum(), meta[0], n).to(torch.int32)
     tile, gid, total, overflow, gauss_ovf = emit_instances(
-        ids_d, nt_d, x0_d, y0_d, bbh_d, tiles_x, capacity, row0, n)
+        *meta, tiles_x, capacity, row0, n, total_true)
     tile_s, perm = torch.sort(tile, stable=True)
     gid_s = gid[perm]
 
@@ -170,4 +211,5 @@ def bin_and_sort(
         num_instances=total,
         overflow=overflow,
         gauss_overflow=gauss_ovf,
+        stream_ids=stream_ids,
     )

@@ -27,18 +27,22 @@ def _kernel():
 
 
 def emit_instances(ids, ntiles, x0, y0, bbh, tiles_x: int, capacity: int,
-                   row0: int = 0, n_sentinel: int | None = None):
+                   row0: int = 0, n_sentinel: int | None = None, total_true=None):
     """Per-slot (tile, gid) for ``capacity`` slots from the depth-ordered
     meta (``ids``, ``ntiles``, ``x0``, ``y0``, ``bbh``: [N] int32, as
-    :func:`tpusplat_torch.ops.binning.depth_sorted_meta` returns them).
-    Returns ``(tile, gid, min(total, C), overflow, gauss_dropped)``."""
+    :func:`tpusplat_torch.ops.binning.depth_sorted_meta` returns them, or
+    its first entries for a compacted stream). Returns ``(tile, gid,
+    min(total, C), overflow, gauss_dropped)``; ``gauss_dropped`` is
+    ``total_true - total`` (0 when ``total_true``, the instance count before
+    compaction, is not given)."""
     if ids.device.type == "cpu":
         return expand_instances_sorted(ids, ntiles, x0, y0, bbh, tiles_x, capacity,
-                                       row0, n_sentinel)
-    return _emit_cuda(ids, ntiles, x0, y0, bbh, tiles_x, capacity, row0, n_sentinel)
+                                       row0, n_sentinel, total_true)
+    return _emit_cuda(ids, ntiles, x0, y0, bbh, tiles_x, capacity, row0, n_sentinel,
+                      total_true)
 
 
-def _emit_cuda(ids, ntiles, x0, y0, bbh, tiles_x, capacity, row0, n_sentinel):
+def _emit_cuda(ids, ntiles, x0, y0, bbh, tiles_x, capacity, row0, n_sentinel, total_true):
     global LAUNCHES
     n = ids.shape[0]
     for name, t in dict(ids=ids, ntiles=ntiles, x0=x0, y0=y0, bbh=bbh).items():
@@ -63,4 +67,4 @@ def _emit_cuda(ids, ntiles, x0, y0, bbh, tiles_x, capacity, row0, n_sentinel):
         tile.data_ptr(), gid.data_ptr(), _build.stream_ptr(ids.device))
     _build.check(err, "emission kernel")
     LAUNCHES += 1
-    return _counters(tile, gid, total, capacity)
+    return _counters(tile, gid, total, capacity, total_true)

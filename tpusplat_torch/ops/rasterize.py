@@ -252,6 +252,8 @@ def backward_blend_plain(attr, starts, ends, img, tmap, d_img, d_tmap, tiles_x: 
     with torch.enable_grad():
         a = attr.detach().requires_grad_(True)
         img_r, tmap_r, _ = blend_plain(a, starts, ends, tiles_x, row0, width, crop_h, cfg)
+        if not img_r.requires_grad:  # no instance in the window (an empty strip)
+            return torch.zeros_like(attr)
         (d_attr,) = torch.autograd.grad((img_r, tmap_r), (a,), (d_img, d_tmap))
     return d_attr
 
