@@ -9,17 +9,22 @@ Phases, one output line each; any failure exits non-zero:
      ``csrc/`` with nvcc (in parallel) and prints the ptxas resource report;
      a register spill fails the run;
   3. parity at 100k Gaussians, 800x800, SH3 (BASELINE config 2): the
-     emission kernel against its plain version (bit-equal), the CUDA
-     bin_and_sort against the CPU one on the same preprocessed Gaussians
-     (bit-equal), the forward-blend kernel against its plain version
-     (image atol 3e-5 rtol 1e-4, transmittance atol 3e-5), the
-     backward-blend kernel against its plain version (autograd of the plain
-     blend) on seeded cotangents of the image and of T (each of the 9
-     gradient rows normalised by its largest magnitude, atol 1e-4), again on
-     an adversarial copy of the slab (opacities at alpha_min x (1 +- 1e-4),
-     conics pushed to b = 0.999 sqrt(ac)) that tests the backward kernel's
-     cull, again on 12x8 and 64x1 tiles (its warps then row-major), and
-     the segment reduce against its plain version (atol 1e-4);
+     emission kernel against its plain version (bit-equal), here and on
+     adversarial meta built from a seed (no instance, one Gaussian owning
+     more slots than a block, capacity ending inside a Gaussian, a total
+     past INT32_MAX, long runs of zero-count Gaussians, a compacted stream
+     with another sentinel and row0 != 0, more Gaussians than the scan has
+     chunks); the CUDA bin_and_sort against the CPU one on the same
+     preprocessed Gaussians (bit-equal), the forward-blend kernel against
+     its plain version (image atol 3e-5 rtol 1e-4, transmittance atol
+     3e-5), the backward-blend kernel against its plain version (autograd
+     of the plain blend) on seeded cotangents of the image and of T (each of
+     the 9 gradient rows normalised by its largest magnitude, atol 1e-4);
+     both blend kernels again on an adversarial copy of the slab
+     (opacities at alpha_min x (1 +- 1e-4), conics pushed to
+     b = 0.999 sqrt(ac)) that tests their cull, and on 12x8 and 64x1 tiles
+     (their warps then row-major), and the segment reduce against its plain
+     version (atol 1e-4);
   4. grad_6k: the gradients of all five parameters through the whole CUDA
      pipeline against the plain pipeline on the CPU, same inputs, at 6k
      Gaussians, 128x128, SH3 (normalised atol 1e-4);
@@ -33,9 +38,11 @@ Phases, one output line each; any failure exits non-zero:
   7. kernels at the garden shapes: each against its plain version, timed
      with CUDA events beside its bound, the plain version's time and, where
      one PyTorch call computes the same function, that call's time; the
-     backward blend and the segment reduce launched twice and bit-equal;
-     the share of (instance, warp) pairs the backward kernel's cull skips,
-     and how many of the pairs it walks hold a passing pixel;
+     emission kernel's own time (its C call on inputs made beforehand)
+     beside its wrapper's; the backward blend and the segment reduce
+     launched twice and bit-equal; the share of (instance, warp) pairs the
+     blend kernels' cull skips, and how many of the pairs the backward
+     walks hold a passing pixel;
      the run lengths the segment reduce sees; the segment reduce on
      adversarial ids (a run of 1e5 rows, empty runs, NaN sentinels);
   8. trainer rehearsal: ``python -m tpusplat_torch.trainer --synthetic``
@@ -215,11 +222,14 @@ def random_rows(torch, gauss_id, n, seed):
 
 def pair_counts(torch, attr, starts, ends, tiles_x, row0, width, crop_h, cfg, tb=32):
     """(visited, passing, contributing) (instance, pixel) pairs of the blend
-    walk over the pixels inside the output: the data-dependent work of the
-    backward kernel's bound; and the (instance, warp) pairs in which some
-    pixel passes, the ones the backward kernel must sum (its warps are
-    ``warp_pixels``)."""
-    from tpusplat_torch.ops.rasterize import warp_pixels
+    walk over the pixels inside the output; the (instance, warp) pairs in
+    which some pixel passes, the ones the backward kernel must sum (its
+    warps are ``warp_pixels``); and the (instance, warp) pairs that a walk
+    with the kernels' cull must take: the instance's pass box
+    (``pass_extent_plain``) meets the warp's rectangle, and some pixel of
+    the warp inside the output still has T > 0 (a pixel at T == 0 stays as
+    it is). The data-dependent work of both blend kernels' bounds."""
+    from tpusplat_torch.ops.rasterize import pass_extent_plain, warp_pixels
 
     num_tiles = starts.shape[0]
     npx = cfg.tile_w * cfg.tile_h
@@ -228,8 +238,9 @@ def pair_counts(torch, attr, starts, ends, tiles_x, row0, width, crop_h, cfg, tb
     lin = torch.arange(npx, device=dev)
     lx, ly = lin % cfg.tile_w, lin // cfg.tile_w
     counts = (ends - starts).long()
-    totals = torch.zeros(4, dtype=torch.int64, device=dev)
+    totals = torch.zeros(5, dtype=torch.int64, device=dev)
     lanes = warp_pixels(cfg.tile_w, cfg.tile_h).flatten().to(dev)
+    nw = npx // 32
     batch_k = torch.nn.functional.pad(counts, (0, -num_tiles % tb)).reshape(-1, tb)
     for bi, k in enumerate(batch_k.max(dim=1).values.tolist()):
         tiles = torch.arange(bi * tb, min((bi + 1) * tb, num_tiles), device=dev)
@@ -239,6 +250,9 @@ def pair_counts(torch, attr, starts, ends, tiles_x, row0, width, crop_h, cfg, tb
         iy = (tiles // tiles_x)[:, None] * cfg.tile_h + ly[None, :]
         inside = (ix < width) & (iy < crop_h)  # [B, P]
         px, py = ix.float(), (iy + row0 * cfg.tile_h).float()
+        # Each warp's rectangle [B, W]: x lo, x hi, y lo, y hi.
+        rect = [f(v[:, lanes].reshape(-1, nw, 32), -1) for v in (px, py)
+                for f in (torch.amin, torch.amax)]
         t_acc = torch.ones(inside.shape, device=dev)
         for k0 in range(0, k, 256):
             ks = torch.arange(k0, min(k0 + 256, k), device=dev)
@@ -252,16 +266,24 @@ def pair_counts(torch, attr, starts, ends, tiles_x, row0, width, crop_h, cfg, tb
             seen = valid[..., None] & inside[:, None, :]
             ok = seen & (power <= 0) & (alpha >= cfg.alpha_min)
             t_incl = t_acc[:, None, :] * torch.cumprod(torch.where(ok, 1 - alpha, 1.0), dim=1)
-            live_warps = ok[..., lanes].reshape(*ok.shape[:2], npx // 32, 32).any(-1)
+            live_warps = ok[..., lanes].reshape(*ok.shape[:2], nw, 32).any(-1)
+            t_excl = torch.cat([t_acc[:, None, :], t_incl[:, :-1, :]], dim=1)
+            open_warps = (seen & (t_excl > 0))[..., lanes].reshape(*ok.shape[:2], nw, 32).any(-1)
+            hx, hy = pass_extent_plain(a[2:5].reshape(3, -1).T, a[5].reshape(-1),
+                                       cfg.alpha_min).reshape(*a.shape[1:], 2).unbind(-1)
+            box = [(a[0] - hx)[..., None], (a[0] + hx)[..., None],
+                   (a[1] - hy)[..., None], (a[1] + hy)[..., None]]
+            miss = (box[0] > rect[1][:, None, :]) | (box[1] < rect[0][:, None, :]) \
+                | (box[2] > rect[3][:, None, :]) | (box[3] < rect[2][:, None, :])
             totals += torch.stack([seen.sum(), ok.sum(), (ok & (t_incl >= cfg.t_min)).sum(),
-                                   live_warps.sum()])
+                                   live_warps.sum(), (open_warps & ~miss).sum()])
             t_acc = t_incl[:, -1, :]
     return [int(v) for v in totals.tolist()]
 
 
 def cull_counts(torch, attr, tile_id, tiles_x, row0, cfg):
-    """(instance, warp) pairs of the backward walk, and how many of them the
-    backward kernel's cull skips: the instance's box (``pass_extent_plain``)
+    """(instance, warp) pairs of the blend walks, and how many of them the
+    blend kernels' cull skips: the instance's box (``pass_extent_plain``)
     misses the rectangle of the warp's pixels (``warp_pixels``). Counted
     over every instance of the ranges, as if no tile stopped early."""
     from tpusplat_torch.ops.rasterize import pass_extent_plain, warp_pixels
@@ -294,6 +316,71 @@ def adversarial_slab(torch, attr, alpha_min, seed):
     thin = 0.999 * torch.sqrt(attr[2] * attr[4]) * torch.where(attr[3] < 0, -1.0, 1.0)
     adv[3] = torch.where((u >= 1 / 3) & (u < 1 / 3 + 1 / 4), thin, attr[3])
     return adv
+
+
+def adversarial_meta(torch, dev, seed):
+    """Emission inputs that stress the kernel's edge cases, from a seed:
+    [(name, meta, tiles_x, capacity, row0, n_sentinel, total_true)], meta
+    the five [N] int32 arrays in emission order. No instance; no Gaussian;
+    one Gaussian owning more slots than a block, with the capacity ending
+    inside it; a third of the counts zero, two runs of 1e5 zero-count
+    Gaussians and Gaussians of 5000 slots, with the capacity ending inside
+    the stream; the same as a compacted stream of a row window (row0 17,
+    another sentinel id, total_true above the total); a total past
+    INT32_MAX; more Gaussians (5M) than the scan has chunks of its
+    smallest size. Every tile id fits in int32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    i32 = torch.int32
+
+    def meta(counts, row0=0):
+        n = counts.shape[0]
+        return (torch.randperm(n, generator=g, device=dev).to(i32), counts.to(i32),
+                torch.randint(0, 100, (n,), generator=g, device=dev, dtype=i32),
+                torch.randint(row0, row0 + 50, (n,), generator=g, device=dev, dtype=i32),
+                torch.randint(1, 9, (n,), generator=g, device=dev, dtype=i32))
+
+    def mixed(n):
+        c = torch.randint(0, 6, (n,), generator=g, device=dev)
+        c = torch.where(torch.rand(n, generator=g, device=dev) < 1 / 3, 0, c)
+        c[1000:101_000] = 0
+        c[-100_000:] = 0
+        c[150_000:250_000:9973] = 5000
+        return c
+
+    c_mix, c_win = mixed(400_000), mixed(300_000)
+    c_big = torch.randint(0, 4, (10_000,), generator=g, device=dev)
+    c_big[[10, 5000, 9000]] = 2**30
+    c_many = torch.randint(0, 3, (5_000_000,), generator=g, device=dev)
+    t_mix, t_win, t_many = (int(c.sum()) for c in (c_mix, c_win, c_many))
+    zeros = torch.zeros(5000, dtype=i32, device=dev)
+    return [
+        ("no_instance", meta(zeros), 120, 4096, 0, None, None),
+        ("no_gaussian", meta(zeros[:0]), 120, 1024, 0, None, None),
+        ("one_gaussian", meta(torch.tensor([3000], device=dev)), 120, 2500, 0, None, None),
+        ("mixed", meta(c_mix), 120, t_mix * 9 // 10 + 1, 0, None, None),
+        ("compacted_window", meta(c_win, row0=17), 120, t_win * 21 // 20, 17, 400_000,
+         torch.tensor(t_win + 999, dtype=torch.int64, device=dev)),
+        ("total_past_int32", meta(c_big), 120, 1 << 20, 0, None, None),
+        ("many_gaussians", meta(c_many), 120, t_many * 11 // 10, 0, None, None),
+    ]
+
+
+def check_emission_adversarial(torch, dev):
+    """The emission kernel against its plain version, bit for bit, on
+    :func:`adversarial_meta`. Returns each case's (N, capacity, total)."""
+    from tpusplat_torch.ops import binning
+    from tpusplat_torch.ops.emission import emit_instances
+
+    out = {}
+    for name, meta, tiles_x, cap, row0, n_sentinel, total_true in adversarial_meta(torch, dev,
+                                                                                   seed=11):
+        args = (*meta, tiles_x, cap, row0, n_sentinel, total_true)
+        got, want = emit_instances(*args), binning.expand_instances_sorted(*args)
+        for field, a, b in zip(("tile", "gid", "total", "overflow", "gauss_dropped"), got,
+                               want):
+            check_equal(f"emission ({name}) {field}", a, b)
+        out[name] = dict(n=meta[0].shape[0], capacity=cap, total=int(meta[1].long().sum()))
+    return out
 
 
 def adversarial_ids(torch, n, dev, seed):
@@ -336,6 +423,7 @@ def phase_parity(torch, dev):
     want = binning.expand_instances_sorted(*meta, tiles_x, cap, 0, n)
     for name, a, b in zip(("tile", "gid", "total", "overflow", "gauss_dropped"), got, want):
         check_equal(f"emission {name}", a, b)
+    emission_adv = check_emission_adversarial(torch, dev)
 
     b_gpu = binning.bin_and_sort(pg, w, h, cfg)
     pg_cpu = ProcessedGaussians(**{f.name: getattr(pg, f.name).cpu()
@@ -382,12 +470,18 @@ def phase_parity(torch, dev):
     adv = adversarial_slab(torch, attr, cfg.alpha_min, seed=4)
     fw_adv = (adv, b_gpu.tile_start, b_gpu.tile_end, tiles_x, 0, w, h, cfg_p)
     img_a, tmap_a, _ = rasterize.forward_blend(*fw_adv)
+    img_ap, tmap_ap, _ = rasterize.blend_plain(*fw_adv)
+    err_fw_adv = max(check_close("forward image (adversarial slab)", img_a, img_ap, atol=3e-5,
+                                 rtol=1e-4),
+                     check_close("forward transmittance (adversarial slab)", tmap_a, tmap_ap,
+                                 atol=3e-5))
+    del img_ap, tmap_ap
     bw_adv = (adv, b_gpu.tile_start, b_gpu.tile_end, img_a, tmap_a, d_img, d_tmap, tiles_x,
               0, w, h, cfg_p)
     err_adv = check_rows("backward blend (adversarial slab)",
                          rasterize.backward_blend(*bw_adv)[:, :live],
                          rasterize.backward_blend_plain(*bw_adv)[:, :live])
-    err_rows = {f"{tw}x{th}": backward_row_major(torch, params, cam, cfg, tw, th)
+    err_rows = {f"{tw}x{th}": blend_row_major(torch, params, cam, cfg, tw, th)
                 for tw, th in ROW_MAJOR_TILES}
 
     # Segment reduce against index_add_, on the real ids with standard-normal
@@ -398,19 +492,25 @@ def phase_parity(torch, dev):
     seg_p = segment_reduce.segment_reduce_plain(rows, gid_s, bounds)
     err_seg = check_close("segment reduce", seg, seg_p, atol=1e-4)
     log(phase="parity_100k", n=n, width=w, height=h, capacity=cap, num_instances=live,
-        max_tile_count=max_count, emission="bit-equal", bin_and_sort="bit-equal vs CPU",
+        max_tile_count=max_count, emission="bit-equal",
+        emission_adversarial=dict(result="bit-equal", cases=emission_adv),
+        bin_and_sort="bit-equal vs CPU",
         compacted_strip=dict(gauss_capacity=gcap,
                              gauss_overflow=int(strips[0].gauss_overflow)),
         forward_max_abs_err_image=err_img, forward_max_abs_err_transmittance=err_t,
-        backward_max_norm_err=err_bw, backward_adversarial_max_norm_err=err_adv,
-        backward_row_major_max_norm_err=err_rows, segment_reduce_max_abs_err=err_seg)
+        forward_adversarial_max_abs_err=err_fw_adv, backward_max_norm_err=err_bw,
+        backward_adversarial_max_norm_err=err_adv,
+        row_major_max_err=dict(forward_abs={k: v[0] for k, v in err_rows.items()},
+                               backward_norm={k: v[1] for k, v in err_rows.items()}),
+        segment_reduce_max_abs_err=err_seg)
 
 
-def backward_row_major(torch, params, cam, cfg, tile_w, tile_h):
-    """The backward kernel against its plain version on tiles that do not
-    split into 8 x 4 warps, where its warps are 32 consecutive pixels (the
-    row-major path of csrc/rasterize_backward.cu) and its cull tests their
-    rectangle. Returns the largest normalised error."""
+def blend_row_major(torch, params, cam, cfg, tile_w, tile_h):
+    """The forward and backward kernels against their plain versions on
+    tiles that do not split into 8 x 4 warps, where their warps are 32
+    consecutive pixels (the row-major layout of csrc/cull.cuh) and their
+    cull tests those rectangles. Returns the forward's largest absolute
+    error and the backward's largest normalised error."""
     from tpusplat_torch.ops import binning, rasterize
     from tpusplat_torch.ops.preprocess import preprocess
 
@@ -426,13 +526,20 @@ def backward_row_major(torch, params, cam, cfg, tile_w, tile_h):
     cfg = dataclasses.replace(cfg, max_per_tile=max(cfg.max_per_tile,
                                                     int((ends - starts).max())))
     tiles_x, _ = cfg.tile_grid(w, h)
-    img, tmap, _ = rasterize.forward_blend(attr, starts, ends, tiles_x, 0, w, h, cfg)
+    fw_args = (attr, starts, ends, tiles_x, 0, w, h, cfg)
+    img, tmap, _ = rasterize.forward_blend(*fw_args)
+    img_p, tmap_p, _ = rasterize.blend_plain(*fw_args)
+    err_fw = max(check_close(f"forward image ({tile_w}x{tile_h} tiles)", img, img_p, atol=3e-5,
+                             rtol=1e-4),
+                 check_close(f"forward transmittance ({tile_w}x{tile_h} tiles)", tmap, tmap_p,
+                             atol=3e-5))
+    del img_p, tmap_p
     d_img, d_tmap = seeded_cotangents(torch, img, tmap, seed=6)
     args = (attr, starts, ends, img, tmap, d_img, d_tmap, tiles_x, 0, w, h, cfg)
     live = int(binned.num_instances)
-    return check_rows(f"backward blend ({tile_w}x{tile_h} tiles)",
-                      rasterize.backward_blend(*args)[:, :live],
-                      rasterize.backward_blend_plain(*args)[:, :live])
+    return err_fw, check_rows(f"backward blend ({tile_w}x{tile_h} tiles)",
+                              rasterize.backward_blend(*args)[:, :live],
+                              rasterize.backward_blend_plain(*args)[:, :live])
 
 
 def loss_and_grads(torch, params, cam, target, cfg):
@@ -611,14 +718,21 @@ def phase_kernels(torch, dev, params, cam, cfg):
         want = binning.expand_instances_sorted(*em_args)
         for name, a, b in zip(("tile", "gid", "total", "overflow"), got, want):
             check_equal(f"garden emission {name}", a, b)
+        bufs = emission.output_buffers(n, cap, dev)
         out["emission"] = dict(
             max_abs_err=max(float((a.long() - b.long()).abs().max())
                             for a, b in zip(got[:2], want[:2])),
-            ms=cuda_ms(torch, lambda: emission.emit_instances(*em_args), reps=20),
+            ms=cuda_ms(torch, lambda: emission.emit_instances(*em_args), reps=100),
+            ms_is="the wrapper's calls back to back; a launch is one C call, which runs "
+                  "the kernel's two parts (the scan, then the emission)",
+            kernel_ms=cuda_ms(torch, lambda: emission.launch(*meta, tiles_x, cap, 0, n, None,
+                                                             bufs), reps=100),
             plain_ms=cuda_ms(torch, lambda: binning.expand_instances_sorted(*em_args), reps=5),
             library_ms=None,
-            # five [N] int32 meta in, two [C] int32 out; search + division per slot
-            bound=bound(4 * (5 * n + 2 * cap), cap * (4 * math.ceil(math.log2(n)) + 10)))
+            # five [N] int32 meta in, two [C] int32 out; its work is integer
+            # work (a scan of the counts, an owner search and a division per
+            # slot), for which the peak table has no rate: the bytes bound it.
+            bound=bound(4 * (5 * n + 2 * cap), 0))
 
         binned = binning.bin_and_sort(pg, w, h, cfg)
         attr = rasterize.pack_instances(pg, binned)
@@ -630,7 +744,18 @@ def phase_kernels(torch, dev, params, cam, cfg):
         img, tmap, _ = rasterize.forward_blend(*fw_args)
         img_p, tmap_p, _ = rasterize.blend_plain(*fw_args)
         npx = cfg.tile_w * cfg.tile_h
+        # (instance, warp) pairs of both blend walks, and how many the cull
+        # skips (the forward and the backward kernel cull alike); the pairs
+        # the walk must take, and the (instance, pixel) pairs of both
+        # kernels' bounds.
+        pairs_iw, culled_iw = cull_counts(torch, attr[:, :live], binned.tile_id[:live],
+                                          tiles_x, 0, cfg)
+        visited, passing, contrib, live_iw, walked_iw = pair_counts(
+            torch, attr, starts, ends, tiles_x, 0, w, h, cfg_p)
+        slab_bytes = 4 * (9 * live + 2 * tiles_x * tiles_y + 4 * w * h)
         out["forward_blend"] = dict(
+            cull=dict(instance_warp_pairs=pairs_iw, culled=culled_iw,
+                      culled_share=culled_iw / max(pairs_iw, 1), needed=walked_iw),
             max_abs_err=max(check_close("garden forward image", img, img_p, atol=3e-5,
                                         rtol=1e-4),
                             check_close("garden forward transmittance", tmap, tmap_p,
@@ -638,8 +763,12 @@ def phase_kernels(torch, dev, params, cam, cfg):
             ms=cuda_ms(torch, lambda: rasterize.forward_blend(*fw_args), reps=20),
             plain_ms=cuda_ms(torch, lambda: rasterize.blend_plain(*fw_args), reps=2),
             library_ms=None,
-            bound=bound(4 * (9 * live + 2 * tiles_x * tiles_y + 4 * w * h),
-                        live * npx * BLEND_FLOPS_PER_PAIR))
+            # slab, tile ranges, img and T; the test's operations on the 32
+            # pixels of each (instance, warp) pair the walk must take
+            bound=bound(slab_bytes, walked_iw * 32 * BLEND_FLOPS_PER_PAIR),
+            # every (instance, pixel) pair of a walk without the cull, the
+            # measure of the bound before the cull reached the forward
+            bound_unculled_ms=bound(slab_bytes, live * npx * BLEND_FLOPS_PER_PAIR)[0])
         del img_p, tmap_p
 
         # Backward blend: the kernel on the full frame; against its plain
@@ -651,8 +780,6 @@ def phase_kernels(torch, dev, params, cam, cfg):
         d_attr = rasterize.backward_blend(*bw_args)
         check_equal("garden backward blend, two launches", d_attr[:, :live],
                     rasterize.backward_blend(*bw_args)[:, :live])
-        pairs_iw, culled_iw = cull_counts(torch, attr[:, :live], binned.tile_id[:live],
-                                          tiles_x, 0, cfg)
         r0, nr = tiles_y // 2 - 2, 4
         tsl = slice(r0 * tiles_x, (r0 + nr) * tiles_x)
         psl = slice(r0 * cfg.tile_h, (r0 + nr) * cfg.tile_h)
@@ -661,8 +788,6 @@ def phase_kernels(torch, dev, params, cam, cfg):
         lo, hi = int(starts[tsl][0]), int(ends[tsl][-1])
         d_strip = rasterize.backward_blend(*st_args)
         d_strip_p = rasterize.backward_blend_plain(*st_args)
-        visited, passing, contrib, live_iw = pair_counts(torch, attr, starts, ends, tiles_x,
-                                                         0, w, h, cfg_p)
         out["backward_blend"] = dict(
             max_abs_err=check_rows("garden backward blend (strip)", d_strip[:, lo:hi],
                                    d_strip_p[:, lo:hi]),
@@ -676,10 +801,11 @@ def phase_kernels(torch, dev, params, cam, cfg):
                                         contributing=contrib),
             cull=dict(instance_warp_pairs=pairs_iw, culled=culled_iw,
                       culled_share=culled_iw / max(pairs_iw, 1), live=live_iw,
-                      walked_dead=pairs_iw - culled_iw - live_iw),
-            # slab in and out, tile ranges, img, T and both cotangents
+                      needed=walked_iw, walked_dead=pairs_iw - culled_iw - live_iw),
+            # slab in and out, tile ranges, img, T and both cotangents; the
+            # test on the walked (instance, warp) pairs, as in the forward
             bound=bound(4 * (18 * live + 2 * tiles_x * tiles_y + 8 * w * h),
-                        visited * BLEND_FLOPS_PER_PAIR
+                        walked_iw * 32 * BLEND_FLOPS_PER_PAIR
                         + passing * BACKWARD_FLOPS_PER_PASSING_PAIR
                         + contrib * BACKWARD_FLOPS_PER_CONTRIB_PAIR))
         del d_strip, d_strip_p
@@ -722,6 +848,9 @@ def phase_kernels(torch, dev, params, cam, cfg):
             bound=bound(4 * (9 * live + (n + 1) + 9 * n), 9 * live))
     for v in out.values():
         v["bound_ms"], v["bound_by"] = v.pop("bound")
+    # The timing loops' launches count on no path.
+    emission.LAUNCHES = rasterize.FORWARD_LAUNCHES = rasterize.BACKWARD_LAUNCHES = 0
+    segment_reduce.LAUNCHES = 0
     log(phase="kernels_garden", num_instances=live, max_tile_count=max_count, kernels=out)
     return out
 
@@ -783,6 +912,16 @@ def phase_sharded_emulated(torch, dev, params, cam, cfg):
         tbl = table[0]
         _, _, res = cg.strip_forward(tbl, row0, st)
         attr, gid, starts, ends, simg, tmap, stream_ids = res
+        # The forward on the strip, whose warp rectangles lie in global
+        # pixel rows (row0 > 0), against its plain version.
+        cfg_s = dataclasses.replace(cfg, max_per_tile=max(cfg.max_per_tile,
+                                                          int((ends - starts).max())))
+        fw_args = (attr, starts, ends, tiles_x, row0, w, crop_h, cfg_s)
+        f_img, f_t, _ = rasterize.forward_blend(*fw_args)
+        p_img, p_t, _ = rasterize.blend_plain(*fw_args)
+        err_f = max(check_close("strip forward image", f_img, p_img, atol=3e-5, rtol=1e-4),
+                    check_close("strip forward transmittance", f_t, p_t, atol=3e-5))
+        del f_img, f_t, p_img, p_t
         d_attr = rasterize.backward_blend(attr, starts, ends, simg, tmap, cot[0].contiguous(),
                                           torch.zeros_like(tmap), tiles_x, row0, w, crop_h, cfg)
         rows, gid_s = cg.sort_by_id(d_attr, gid)
@@ -847,7 +986,7 @@ def phase_sharded_emulated(torch, dev, params, cam, cfg):
                                                          strip_visible=visible),
         capacity=st.cap_shard, num_instances=live, bucket_cap=cg.a2a_bucket_cap(st),
         targets=m, owner_rows=live_x, counters=counters, path_ms=e0.elapsed_time(e1),
-        launches=launches, split_ms=split,
+        launches=launches, split_ms=split, forward_max_abs_err=err_f,
         kernels={k: {kk: vv for kk, vv in v.items()} for k, v in out.items()})
     for k in out:
         out[k]["launches"] = launches[k]
@@ -1178,7 +1317,8 @@ def run(torch, dev, kind: str, smi: str) -> int:
             launches=training[name] if name in training else t["launches"],
             launches_serving=serving.get(name),
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
-            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"]))
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
+            **{k: t[k] for k in ("kernel_ms", "ms_is", "bound_unculled_ms") if k in t}))
     if any(training[k] < len(cams) for k in training) or \
             any(k["launches"] < 1 for k in kernels):
         fail(f"launch counts {training} below one a step, or a sharded mode unlaunched")

@@ -34,26 +34,25 @@
 // every range (past the last instance) are not written.
 //
 // Bound: operations, counted per (instance, pixel) pair from the code: the
-// forward's 13 operations of the test on every visited pair; 34 more on a
-// passing pair (4 for f, T f, 1/f and the T term; 2 for dpower and dop; 9
-// for the conic and 10 for the uv gradients; 9 adds to sum the 9 terms over
-// the tile, one add a term, as any reduction needs); 16 more on a pair that
-// contributes colour (its weight, the dot dc.col, the running dot, the
+// forward's 13 operations of the test on the 32 pixels of each (instance,
+// warp) pair the culled walk must take (see rasterize_forward.cu); 34 more
+// on a passing pair (4 for f, T f, 1/f and the T term; 2 for dpower and dop;
+// 9 for the conic and 10 for the uv gradients; 9 adds to sum the 9 terms
+// over the tile, one add a term, as any reduction needs); 16 more on a pair
+// that contributes colour (its weight, the dot dc.col, the running dot, the
 // suffix term and the 3 colour gradients). chip_smoke.py counts the three
 // kinds of pairs of its inputs for the bound. What costs is not these
 // operations but the warp instructions issued for pairs that fail the test:
-// at the garden shapes about 86% of the visited pairs fail, and a warp that
-// walks an instance pays the exp, the vote and the sums of its 32 lanes
+// at the garden shapes about 86% of the pairs of an unculled walk fail,
+// and a warp that walks an instance pays the exp, the vote and the sums of its 32 lanes
 // whether or not any lane passes.
 //
-// Design: one block per tile, one thread per pixel, as the forward kernel.
-// A warp's 32 pixels are an 8 x 4 block of the tile where the tile divides
-// into such blocks (a 16 x 16 tile into 2 x 4), else 32 consecutive pixels
-// in row-major order: a square block meets fewer Gaussians' footprints than
-// a strip of the same area. Each pass stages kBatch instances in shared
-// memory, and with each the box of pixels at which it can pass the test
-// (below). Each warp takes the batch 32 instances at a time: one vote of
-// its lanes, lane i testing instance i's box against the rectangle of the
+// Design: one block per tile, one thread per pixel, as the forward kernel,
+// with its warps' pixel layout and per-warp cull (cull.cuh, whose note
+// holds the cull's float32 argument). Each pass stages kBatch instances in
+// shared memory, and with each the box of pixels at which it can pass the
+// test. Each warp takes the batch 32 instances at a time: one vote of its
+// lanes, lane i testing instance i's box against the rectangle of the
 // warp's pixels, leaves the instances the warp must walk, and it walks only
 // those, in order. For each, every thread computes its pixel's 9 terms;
 // where any lane passes, the warp sums the 9 terms by a transposed
@@ -69,30 +68,11 @@
 // does to them when no pixel of the warp passes. The TPU kernel's 128-lane
 // granules, boundary-granule carry and ping-pong writeback were workarounds
 // for DMA stores and have no counterpart here.
-//
-// The cull is conservative: it never drops a pair that passes in float32.
-// A pair passes where op e^power >= alpha_min and power <= 0. With
-// tau = ln(op / alpha_min) and power = -q/2, q = d^T C d, C = [[a, b],
-// [b, c]], d = (dx, dy), that is q <= 2 tau; for C positive definite the
-// ellipse q <= Q has the box |dx| <= sqrt(Q c / det), |dy| <= sqrt(Q a / det),
-// det = a c - b^2. The kernel evaluates power in float32: its error is at
-// most a few units of 2^-24 times S/2, S = |a| dx^2 + |c| dy^2 + 2 |b dx dy|,
-// and S <= kappa q with kappa = (1 + |rho|) / (1 - |rho|), rho = b / sqrt(ac);
-// exp and the opacity product err by under 1e-6 relative. So a pair that
-// passes in float32 has q <= Q = 2 (tau + kTauSlack) / (1 - kPowerErr kappa),
-// with kTauSlack and kPowerErr several times those errors. det, tau and the
-// extents are computed in double from the float32 inputs, and each
-// half-extent gets a margin of one pixel plus kRelMargin of itself, which
-// covers the float32 rounding of dx and of the box's edges for pixel
-// coordinates below 2^24. The cull is off (an infinite box) where an input
-// is not finite, alpha_min <= 0, C is not positive definite, or
-// kPowerErr kappa > 1/2 (b^2 too close to a c for float32 to tell); the box
-// is empty where op <= 0 or tau < -kTauSlack, since no pixel then passes. A
-// NaN edge culls nothing.
 
 #include <cuda_runtime.h>
 
 #include "blend_pair.cuh"
+#include "cull.cuh"
 
 namespace {
 
@@ -100,36 +80,6 @@ constexpr int kRows = 9;
 constexpr int kBatch = 128;  // instances staged per pass
 constexpr int kWords = kBatch / 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr double kTauSlack = 1e-5;
-constexpr double kPowerErr = 1e-6;
-constexpr double kRelMargin = 1e-3;
-
-__device__ __forceinline__ bool finite(float x) { return fabsf(x) <= 3.402823466e38f; }
-
-// The half-extents of the pixel offsets (dx, dy) at which an instance can
-// pass the test, margin included (see the note above): +inf where the cull
-// is off, -inf where no pixel passes. The formula of
-// tpusplat_torch/ops/rasterize.py::pass_extent_plain.
-__device__ __forceinline__ float2 pass_extent(float ca, float cb, float cc, float op,
-                                              float alpha_min) {
-  const float inf = __int_as_float(0x7f800000);
-  if (!(finite(ca) && finite(cb) && finite(cc) && finite(op)) || !(alpha_min > 0.0f)) {
-    return make_float2(inf, inf);
-  }
-  if (!(op > 0.0f)) return make_float2(-inf, -inf);  // op e^power <= 0 < alpha_min
-  const double a = ca, b = cb, c = cc;
-  const double det = a * c - b * b;
-  if (!(a > 0.0 && c > 0.0 && det > 0.0)) return make_float2(inf, inf);
-  const double tau = log(static_cast<double>(op) / static_cast<double>(alpha_min));
-  if (tau < -kTauSlack) return make_float2(-inf, -inf);
-  const double rho = fabs(b) / sqrt(a * c);
-  const double kappa = (1.0 + rho) / (1.0 - rho);
-  if (kPowerErr * kappa > 0.5) return make_float2(inf, inf);
-  const double q = 2.0 * (fmax(tau, 0.0) + kTauSlack) / (1.0 - kPowerErr * kappa);
-  return make_float2(static_cast<float>(sqrt(q * c / det) * (1.0 + kRelMargin) + 1.0),
-                     static_cast<float>(sqrt(q * a / det) * (1.0 + kRelMargin) + 1.0));
-}
-
 // One step of the transposed reduction: v[0, m) becomes v[0, h), h = (m+1)/2.
 // The upper lane of each pair (lane ^ o) keeps v[h, m) (and zeros past m),
 // the lower keeps v[0, h), and each adds the half its partner sends.
@@ -195,34 +145,16 @@ __global__ void backward_kernel(const float* __restrict__ attr, long long stride
   const int lane = p & 31;
   const int tx = t % tiles_x;
   const int ty = t / tiles_x;
-  // The thread's pixel (lx, ly) in the tile and the rectangle [x0, x1] x
-  // [y0, y1] that holds its warp's pixels (see the note above).
+  // The thread's pixel and its warp's rectangle (cull.cuh).
   int lx, ly, x0, x1, y0, y1;
-  if (tile_w % 8 == 0 && tile_h % 4 == 0) {
-    x0 = warp % (tile_w / 8) * 8;
-    y0 = warp / (tile_w / 8) * 4;
-    x1 = x0 + 7;
-    y1 = y0 + 3;
-    lx = x0 + (lane & 7);
-    ly = y0 + (lane >> 3);
-  } else {
-    const int p0 = p - lane, p1 = p0 + 31;
-    y0 = p0 / tile_w;
-    y1 = p1 / tile_w;
-    x0 = y0 == y1 ? p0 % tile_w : 0;
-    x1 = y0 == y1 ? p1 % tile_w : tile_w - 1;
-    lx = p % tile_w;
-    ly = p / tile_w;
-  }
+  warp_pixels(p, lane, warp, tile_w, tile_h, lx, ly, x0, x1, y0, y1);
   const int ix = tx * tile_w + lx;  // image column
   const int iy = ty * tile_h + ly;  // row of the output (strip-local)
   const float px = static_cast<float>(ix);
   const float py = static_cast<float>(row0 * tile_h + iy);  // global pixel row
   const bool inside = ix < width && iy < crop_h;
-  const float wx0 = static_cast<float>(tx * tile_w + x0);
-  const float wx1 = static_cast<float>(tx * tile_w + x1);
-  const float wy0 = static_cast<float>((row0 + ty) * tile_h + y0);
-  const float wy1 = static_cast<float>((row0 + ty) * tile_h + y1);
+  float wx0, wx1, wy0, wy1;
+  warp_rect(tx, ty, tile_w, tile_h, row0, x0, x1, y0, y1, wx0, wx1, wy0, wy1);
 
   // Cotangents and saved outputs; a pixel outside the crop has cotangent 0.
   float dcr = 0.0f, dcg = 0.0f, dcb = 0.0f, d_fin = 0.0f, dtf = 0.0f;
@@ -260,9 +192,7 @@ __global__ void backward_kernel(const float* __restrict__ attr, long long stride
     for (int j0 = 0; j0 < cnt; j0 += 32) {
       const int jl = j0 + lane;
       // Walked where the box meets the rectangle; a NaN edge culls nothing.
-      const bool walk = jl < cnt && !(box[0 * kBatch + jl] > wx1 ||
-                                      box[1 * kBatch + jl] < wx0 ||
-                                      box[2 * kBatch + jl] > wy1 || box[3 * kBatch + jl] < wy0);
+      const bool walk = jl < cnt && !BOX_MISSES(box, kBatch, jl, wx0, wx1, wy0, wy1);
       unsigned todo = __ballot_sync(kFull, walk);
       unsigned live_bits = 0;
       while (todo) {

@@ -258,7 +258,7 @@ def backward_blend_plain(attr, starts, ends, img, tmap, d_img, d_tmap, tiles_x: 
     return d_attr
 
 
-# The backward kernel's cull (csrc/rasterize_backward.cu's note): slack on
+# The blend kernels' cull (csrc/cull.cuh's note): slack on
 # tau = ln(op / alpha_min), bound on float32's relative error in power,
 # relative margin of a half-extent (added to one pixel).
 CULL_TAU_SLACK, CULL_POWER_ERR, CULL_REL_MARGIN = 1e-5, 1e-6, 1e-3
@@ -268,7 +268,8 @@ def pass_extent_plain(conic: torch.Tensor, opacity: torch.Tensor, alpha_min: flo
     """Half-extents [N, 2] float32 (|dx|, |dy|) of the pixel offsets
     ``uv - pixel`` at which each instance can pass the blend's test
     (``op exp(power) >= alpha_min``, ``power <= 0``), margin included: the
-    formula by which the backward kernel culls (instance, warp) pairs.
+    formula by which the forward and backward kernels cull (instance, warp)
+    pairs (``csrc/cull.cuh``).
     +inf where the cull is off (an input not finite, ``alpha_min <= 0``, a
     conic that is not positive definite or too near singular for float32),
     -inf where no pixel passes. ``conic`` [N, 3] (a, b, c), ``opacity`` [N].
@@ -295,7 +296,8 @@ def pass_extent_plain(conic: torch.Tensor, opacity: torch.Tensor, alpha_min: flo
 
 def warp_pixels(tile_w: int, tile_h: int) -> torch.Tensor:
     """[P / 32, 32] int64: the pixels (``y * tile_w + x`` in the tile) of
-    each warp of the backward kernel, lane by lane: 8 x 4 blocks where the
+    each warp of the forward and backward kernels, lane by lane (the
+    layout of ``csrc/cull.cuh``): 8 x 4 blocks where the
     tile divides into them, else 32 consecutive pixels. Only tests and
     ``chip_smoke.py`` call it."""
     npx = tile_w * tile_h
