@@ -47,7 +47,24 @@ Phases, one output line each; any failure exits non-zero:
      adversarial ids (a run of 1e5 rows, empty runs, NaN sentinels);
   8. trainer rehearsal: ``python -m tpusplat_torch.trainer --synthetic``
      for 30 steps at 128x128; the loss must fall;
-  9. sharded_emulated: one strip of the tile-sharded path at the garden
+  9. data_training: the trainer's real-data path at the garden shapes. A
+     COLMAP capture written to disk (16 orbit views of the garden scene at
+     1920x1080 as PNGs, one PINHOLE camera, 100k SfM points drawn from its
+     means and coloured from their SH DC) and read back with
+     ``load_colmap_scene`` (view and projection matrices within 1e-5,
+     images within 0.5/255 + 1e-6); ``trainer.main(["--data", ...,
+     "--holdout", "8", "--steps", "60", "--capacity", "1400000", "--ckpt",
+     ..., "--watchdog-secs", "300", ...])`` with the launch counters reset
+     just before and read just after (the loss falls, the held-out PSNR
+     rises, two held-out views, overflow 0 in every logged line, each
+     kernel launched at least once a step); the checkpoint loaded onto the
+     card equal to the final state, and one ``train_step`` from each
+     bit-equal; the trained ``.ply`` read natively and with numpy, equal;
+     a garden frame with ``debug_checks`` (every counter 0, image and T
+     bit-equal to the frame without), ``render`` raising on a NaN mean,
+     the clean frame bit-equal afterwards; ``render_batch`` of the orbit
+     bit-equal to one ``render_stages`` a camera; the seconds of each part;
+ 10. sharded_emulated: one strip of the tile-sharded path at the garden
      shapes (tile = 4, 17 tile rows a strip, strip_gauss_mult 2.0: strip
      compaction active, or the run fails) through
      ``exchange_render_emulated``, forward and backward, the launch counters
@@ -56,7 +73,7 @@ Phases, one output line each; any failure exits non-zero:
      on that strip's ids (atol 1e-4), launched twice and bit-equal, timed
      beside their bytes bounds; the strip's split (binning, forward kernel,
      backward kernel, gid sort, reduce, owner reduce);
- 10. sharded_two_process: two processes on the one card (gloo through host
+ 11. sharded_two_process: two processes on the one card (gloo through host
      memory: NCCL cannot run two ranks on one card), mesh 1x2, 100k
      Gaussians at 800x800, SH3: one ``sharded_train_step`` with the dense
      exchange, one with the compact one, and ``sharded_train_step_overlap``
@@ -71,7 +88,7 @@ line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --nccl
 
-runs only phase 10's steps with a card per rank over NCCL (the path of
+runs only phase 11's steps with a card per rank over NCCL (the path of
 ``trainer --mesh`` under torchrun), on the meshes 1x4 and 2x2 (one camera
 per data rank, against the one-process step on the same batch); it needs
 four cards.
@@ -1197,6 +1214,269 @@ def phase_trainer_rehearsal(torch, dev):
         final_eval=summary["evals"][-1], step=summary["step"])
 
 
+# The data_training phase: a COLMAP capture of the garden scene written to
+# disk (16 orbit views at 1080p, 100k SfM points from its means), then
+# ``trainer --data`` on it at the garden capacity with every eighth view
+# held out.
+CAPTURE = dict(views=16, points=100_000)
+DATA_TRAINING = ["--holdout", "8", "--steps", "60", "--sh-degree", "3", "--capacity",
+                 "1400000", "--densify-every", "20", "--eval-every", "30", "--log-every", "10",
+                 "--watchdog-secs", "300"]
+
+
+def _rotmat_to_quat(r):
+    """(w, x, y, z) of a rotation matrix (Shepperd's branches)."""
+    import numpy as np
+
+    t = np.trace(r)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2
+        return np.array([0.25 * s, (r[2, 1] - r[1, 2]) / s, (r[0, 2] - r[2, 0]) / s,
+                         (r[1, 0] - r[0, 1]) / s])
+    i = int(np.argmax(np.diag(r)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = np.sqrt(max(r[i, i] - r[j, j] - r[k, k] + 1.0, 1e-12)) * 2
+    q = np.zeros(4)
+    q[0] = (r[k, j] - r[j, k]) / s
+    q[1 + i] = 0.25 * s
+    q[1 + j] = (r[j, i] + r[i, j]) / s
+    q[1 + k] = (r[k, i] + r[i, k]) / s
+    return q
+
+
+def write_colmap_capture(root, cams, images, xyz, rgb):
+    """A COLMAP capture in the Mip-NeRF 360 layout (the binary layout of
+    tests/test_colmap.py's writers): ``images/`` with one PNG per view,
+    ``sparse/0`` with one PINHOLE camera, each view's pose in COLMAP's
+    OpenCV frame (the shader frame of ``Camera.view``), and the points."""
+    import struct
+
+    import numpy as np
+
+    from tpusplat_torch.io.dataset import save_png
+
+    sparse = root / "sparse" / "0"
+    sparse.mkdir(parents=True)
+    (root / "images").mkdir()
+    w, h = cams[0].width, cams[0].height
+    fx, fy = w / (2 * float(cams[0].tan_fovx)), h / (2 * float(cams[0].tan_fovy))
+    with open(sparse / "cameras.bin", "wb") as f:
+        f.write(struct.pack("<Q", 1) + struct.pack("<iiQQ", 1, 1, w, h))
+        f.write(struct.pack("<4d", fx, fy, w / 2, h / 2))
+    with open(sparse / "images.bin", "wb") as f:
+        f.write(struct.pack("<Q", len(cams)))
+        for i, (cam, img) in enumerate(zip(cams, images)):
+            name = f"view_{i:03d}.png"
+            save_png(root / "images" / name, img)
+            w2c = cam.view.double().cpu().numpy()  # +y down, +z forward
+            f.write(struct.pack("<i", i + 1)
+                    + struct.pack("<4d", *_rotmat_to_quat(w2c[:3, :3])))
+            f.write(struct.pack("<3d", *w2c[:3, 3]) + struct.pack("<i", 1))
+            f.write(name.encode() + b"\x00" + struct.pack("<Q", 0))
+    rec = np.zeros(len(xyz), np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3),
+                                       ("err", "<f8"), ("track", "<u8")]))
+    rec["id"], rec["xyz"], rec["rgb"], rec["err"] = np.arange(len(xyz)), xyz, rgb, 0.5
+    with open(sparse / "points3D.bin", "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)) + rec.tobytes())
+
+
+def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DATA_TRAINING):
+    """The trainer's real-data path at the garden shapes: a COLMAP capture
+    written to disk and read back, ``trainer --data`` with a held-out eval,
+    a checkpoint and the watchdog; the checkpoint against the final state;
+    the native .ply reader against numpy; the validation counters on a
+    clean and a poisoned garden frame; render_batch."""
+    import contextlib
+    import io
+    import pathlib
+    import shutil
+
+    import numpy as np
+
+    from tpusplat_torch import trainer
+    from tpusplat_torch.camera import look_at_camera
+    from tpusplat_torch.config import SH_C0
+    from tpusplat_torch.io import colmap, native_loader
+    from tpusplat_torch.io.dataset import read_image
+    from tpusplat_torch.io.ply import load_ply
+    from tpusplat_torch.ops import emission, rasterize, segment_reduce
+    from tpusplat_torch.render import render, render_auto, render_batch, render_stages
+    from tpusplat_torch.train import step as tstep
+    from tpusplat_torch.train.checkpoint import load_checkpoint, save_checkpoint, state_tensors
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    out_dir = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke" / "data"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    root = out_dir / "capture"
+    root.mkdir(parents=True)
+    seconds = {}
+
+    # 1. The capture: the garden scene's renders from an orbit, and SfM
+    # points drawn from its means, coloured from their SH DC.
+    w, h = cams[0].width, cams[0].height
+    views = orbit_cameras(look_at_camera, [0.0, 0.5, 9.0], [0.0, 0.0, 0.0], w, h, 60.0,
+                          capture["views"], dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        renders, gcfg = [], cfg
+        for cam in views:
+            img, aux, gcfg = render_auto(params, cam, gcfg)
+            if int(aux["capacity_overflow"]):
+                fail("data_training: a capture render overflowed")
+            renders.append(img.clamp(0.0, 1.0))
+    pick = np.random.default_rng(0).choice(params.num_gaussians, capture["points"],
+                                           replace=False)
+    xyz = params.means[torch.from_numpy(pick).to(dev)].double().cpu().numpy()
+    dc = params.sh[torch.from_numpy(pick).to(dev), 0].cpu().numpy()
+    rgb = np.round(np.clip(SH_C0 * dc + 0.5, 0.0, 1.0) * 255.0).astype(np.uint8)
+    write_colmap_capture(root, views, renders, xyz, rgb)
+    seconds["write_capture"] = time.perf_counter() - t0
+
+    # 2. Read it back: cameras, points and the k-NN init, images.
+    (got_cams, names, init), seconds["load_colmap_scene"] = timed(
+        lambda: colmap.load_colmap_scene(str(root), device=dev))
+    xyz_r, rgb_r = colmap.read_points3d_bin(str(root / "sparse" / "0" / "points3D.bin"))
+    _, seconds["knn_init"] = timed(lambda: colmap.init_from_points(xyz_r, rgb_r, device=dev))
+    if init.num_gaussians != capture["points"] or init.means.device.type != dev.type:
+        fail(f"data_training: {init.num_gaussians} seeded Gaussians on {init.means.device}")
+    for cam, want in zip(got_cams, views):
+        for f in ("view", "proj"):
+            err = float((getattr(cam, f) - getattr(want, f)).abs().max())
+            if not err <= 1e-5:
+                fail(f"data_training: a read-back {f} matrix is off by {err}")
+    t0 = time.perf_counter()
+    for nm, want in zip(names, renders):
+        img = torch.from_numpy(read_image(str(root / "images" / nm))[..., :3]).to(dev)
+        check_close(f"data_training: image {nm}", img, want, atol=0.5 / 255 + 1e-6)
+    seconds["png_read"] = time.perf_counter() - t0
+    del init, renders
+
+    # 3. The trainer on the capture, the launch counters reset just before
+    # and read just after.
+    ply, ckpt = out_dir / "trained.ply", out_dir / "state.npz"
+    sync()
+    emission.LAUNCHES = rasterize.FORWARD_LAUNCHES = rasterize.BACKWARD_LAUNCHES = 0
+    segment_reduce.LAUNCHES = 0
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        summary = trainer.main(["--data", str(root), *argv, "--ckpt", str(ckpt),
+                                "--out", str(ply), "--device", dev.type])
+    seconds["trainer"] = time.perf_counter() - t0
+    launches = dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES,
+                    backward_blend=rasterize.BACKWARD_LAUNCHES,
+                    segment_reduce=segment_reduce.LAUNCHES)
+    sys.stderr.write(err.getvalue())
+    lines = [json.loads(ln) for ln in err.getvalue().splitlines() if ln.startswith("{")]
+    steps = summary["step"]
+    losses = [v for _, v in summary["losses"]]
+    evals = summary["evals"]
+    seeded = [ln for ln in lines if "colmap_points" in ln]
+    if not seeded or seeded[0]["seeded"] != capture["points"]:
+        fail(f"data_training: the SfM points did not seed the model ({seeded})")
+    if len(losses) < 2 or not losses[-1] < losses[0]:
+        fail(f"data_training: the loss did not fall: {losses}")
+    if any(ln["overflow"] for ln in lines if "overflow" in ln):
+        fail(f"data_training: a logged step or eval overflowed: {lines}")
+    if not all(e["holdout"] and e["views"] == capture["views"] // 8 for e in evals):
+        fail(f"data_training: the evals are not on the held-out views: {evals}")
+    if not evals[-1]["final"] or not evals[-1]["psnr"] > evals[0]["psnr"]:
+        fail(f"data_training: held-out PSNR did not rise: {[e['psnr'] for e in evals]}")
+    if dev.type == "cuda" and any(v < steps for v in launches.values()):
+        fail(f"data_training: a kernel launched fewer times than the {steps} steps: "
+             f"{launches}")
+
+    # 4. The checkpoint against the trainer's final state, and one step
+    # from each, bit for bit.
+    state = summary["state"]
+    restored, seconds["checkpoint_load"] = timed(lambda: load_checkpoint(ckpt, state))
+    for k, v in state_tensors(state).items():
+        r = state_tensors(restored)[k]
+        if r.device != v.device or not torch.equal(r, v):
+            fail(f"data_training: checkpoint {k} differs from the final state")
+    _, seconds["checkpoint_save"] = timed(lambda: save_checkpoint(ckpt, restored))
+    cam0 = got_cams[1]  # a training view (views 0 and 8 are held out)
+    target = torch.from_numpy(read_image(str(root / "images" / names[1]))[..., :3]).to(dev)
+    step_cfg = summary["cfg"]  # the capacity the trainer's regrows reached
+    opt = tstep.make_optimizer(scene_extent=4.0)
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # no run-to-run choice of algorithm
+    try:
+        (a, ma), (b, mb) = (tstep.train_step(s, cam0, target, step_cfg, opt)
+                            for s in (state, restored))
+    finally:
+        torch.backends.cudnn.deterministic = cudnn
+    if int(ma["capacity_overflow"]) or int(a.step) != steps + 1:
+        fail("data_training: the step after the checkpoint overflowed")
+    for k, v in state_tensors(a).items():
+        if not torch.equal(state_tensors(b)[k], v):
+            fail(f"data_training: a step from the checkpoint differs in {k}")
+    del state, restored, a, b, summary
+
+    # 5. The native .ply reader against numpy, field by field.
+    _, seconds["native_build"] = timed(native_loader.build)
+    native, seconds["ply_read_native"] = timed(lambda: load_ply(ply, device=dev))
+    plain, seconds["ply_read_numpy"] = timed(lambda: load_ply(ply, device=dev,
+                                                              use_native=False))
+    for f in dataclasses.fields(native):
+        if not torch.equal(getattr(native, f.name), getattr(plain, f.name)):
+            fail(f"data_training: native .ply read differs from numpy in {f.name}")
+    n_ply = native.num_gaussians
+    del native, plain
+
+    # 6. Validation on a garden frame: counters 0 and the frame unchanged;
+    # a NaN mean raises; the clean frame afterwards is the same.
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        dbg = dataclasses.replace(cfg, debug_checks=True)
+        img, aux = render_stages(params, cams[0], cfg)
+        img_d, aux_d = render_stages(params, cams[0], dbg)
+        counters = {k: int(v) for k, v in aux_d["debug"].items()}
+        if any(counters.values()) or int(aux["capacity_overflow"]):
+            fail(f"data_training: validation counters on a clean frame: {counters}")
+        if not (torch.equal(img, img_d) and torch.equal(aux["transmittance"],
+                                                        aux_d["transmittance"])):
+            fail("data_training: the frame with debug_checks differs")
+        means = params.means.clone()
+        means[7] = float("nan")
+        try:
+            render(dataclasses.replace(params, means=means), cams[0], dbg)
+        except RuntimeError as e:
+            if "validation failed" not in str(e):
+                fail(f"data_training: a NaN mean raised another error: {e}")
+            raised = str(e)
+        else:
+            fail("data_training: a NaN mean did not trip the validation")
+        del means
+        sync()
+        if not torch.equal(render_stages(params, cams[0], cfg)[0], img):
+            fail("data_training: the clean frame after the poisoned one differs")
+
+        # 7. render_batch against one render_stages per camera.
+        batch = render_batch(params, cams, cfg)
+        for i, cam in enumerate(cams):
+            if not torch.equal(batch[i], render_stages(params, cam, cfg)[0]):
+                fail(f"data_training: render_batch camera {i} differs")
+    seconds["validation_and_batch"] = time.perf_counter() - t0
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(phase="data_training", width=w, height=h, views=capture["views"],
+        held_out=evals[0]["views"], points=capture["points"], steps=steps, losses=losses,
+        evals=[{k: e[k] for k in ("eval_step", "psnr", "ssim", "views", "overflow")}
+               for e in evals], ply_gaussians=n_ply, launches=launches,
+        nan_mean=raised, seconds=seconds)
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1288,6 +1568,7 @@ def run(torch, dev, kind: str, smi: str) -> int:
     cfg, training = phase_garden_training(torch, dev, params, cams, cfg)
     timed = phase_kernels(torch, dev, params, cams[0], cfg)
     phase_trainer_rehearsal(torch, dev)
+    data = phase_data_training(torch, dev, params, cams, cfg)
     timed.update(phase_sharded_emulated(torch, dev, params, cams[0], cfg))
     del params
     torch.cuda.empty_cache()
@@ -1311,11 +1592,12 @@ def run(torch, dev, kind: str, smi: str) -> int:
     for name, (source, replaces) in sources.items():
         t = timed[name]
         # The serving and training kernels count over the garden training
-        # steps; the two sharded modes over the emulated strip's path.
+        # steps (and over the data_training trainer run); the two sharded
+        # modes over the emulated strip's path.
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=training[name] if name in training else t["launches"],
-            launches_serving=serving.get(name),
+            launches_serving=serving.get(name), launches_data_training=data.get(name),
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
             **{k: t[k] for k in ("kernel_ms", "ms_is", "bound_unculled_ms") if k in t}))

@@ -20,7 +20,13 @@ from tpusplat_torch.camera import look_at_camera
 from tpusplat_torch.config import RenderConfig, regrow
 from tpusplat_torch.io.synthetic import random_scene
 from tpusplat_torch.ops import rasterize
-from tpusplat_torch.render import render, render_auto, render_profiled, render_stages
+from tpusplat_torch.render import (
+    render,
+    render_auto,
+    render_batch,
+    render_profiled,
+    render_stages,
+)
 
 torch.set_num_threads(2)
 
@@ -107,6 +113,33 @@ def test_render_profiled_matches_render_stages():
     np.testing.assert_array_equal(img_p.numpy(), img.numpy())
 
 
+def test_render_batch_matches_individual():
+    """tests/test_render_vs_golden.py::test_render_batch_matches_individual:
+    each image bit-equal to its own render_stages, and the batch within this
+    file's bound of the JAX render_batch."""
+    import jax
+
+    from tpusplat.render import render_batch as jax_render_batch
+    from tpusplat.types import stack_cameras
+
+    params = jax_random_scene(200, seed=3, sh_degree=0)
+    jcams = [jax_look_at([i - 1.0, 0, 6.0], [0, 0, 0], 64, 64) for i in range(3)]
+    cfg = JaxConfig(sh_degree=0, max_per_tile=128, tile_chunk=4)
+    want = np.asarray(jax.jit(jax_render_batch, static_argnames="cfg")(
+        params, stack_cameras(jcams), cfg))
+    tcfg = convert.config_from_fields(dataclasses.asdict(cfg))
+    tp, _ = _port(params, jcams[0])
+    cams = [_port(params, c)[1] for c in jcams]
+    batch = render_batch(tp, cams, tcfg)
+    assert batch.shape == (3, 64, 64, 3)
+    for i, cam in enumerate(cams):
+        assert torch.equal(batch[i], render_stages(tp, cam, tcfg)[0])
+    np.testing.assert_allclose(batch.numpy(), want, atol=3e-5, rtol=1e-4)
+    small = look_at_camera([0, 0, 6.0], [0, 0, 0], 32, 64, device="cpu")
+    with pytest.raises(ValueError, match="one resolution"):
+        render_batch(tp, [cams[0], small], tcfg)
+
+
 def test_render_is_differentiable_on_cpu():
     params = random_scene(150, seed=2, sh_degree=1, scale_range=(0.05, 0.3), device="cpu")
     cam = look_at_camera([0.0, 0.0, 6.0], [0, 0, 0], 32, 32, fov_deg=60.0, device="cpu")
@@ -138,8 +171,8 @@ def test_config_contract():
         convert.config_from_fields({"no_such_field": 1})
     params = random_scene(20, seed=0, device="cpu")
     cam = look_at_camera([0, 0, 5.0], [0, 0, 0], 32, 32, device="cpu")
-    with pytest.raises(NotImplementedError):
-        render_stages(params, cam, RenderConfig(debug_checks=True))
+    _, aux = render_stages(params, cam, RenderConfig(debug_checks=True))
+    assert aux["debug"] and all(int(v) == 0 for v in aux["debug"].values())
     grown, log = regrow(RenderConfig(), {"capacity_overflow": torch.tensor(100),
                                          "tile_overflow": np.array([1, 2])}, 1000)
     assert grown.capacity == int((8192 + 100) * 1.3) and grown.max_per_tile == 2048

@@ -10,7 +10,10 @@ temporary directory), against the JAX package on its virtual CPU devices:
     nu = 0.001 g^2: the reduced gradient's magnitude, which the update,
     -lr sign(g) at the first step, does not show);
   * the overlap step (ring and all-reduce) against the monolithic step,
-    parameters and moments.
+    parameters and moments;
+  * tests/test_regrow.py::test_sharded_train_step_overflow_is_noop on the
+    2x2 mesh: an overflowed sharded step leaves the state as it was on
+    every rank, and the retry at the regrown capacity applies the update.
 
 The compact exchange has its own file, tests/test_torch_compact_grad.py.
 The JAX side runs through its XLA path (``use_pallas=False``)."""
@@ -97,8 +100,46 @@ def _worker(rank, dev, inputs, out_dir):
                          ("psum", dict(grad_reduce="psum"), sharded.sharded_train_step_overlap)):
         s1, m = fn(state, cams[:2], tgt, cfg, opt, mesh, **kw)
         steps[name] = _summary(s1, m, mesh)
+    regrow = _overflow_noop(inputs["regrow"], opt, mesh)
     if rank == 0:
-        torch.save(dict(renders=res_all, steps=steps), f"{out_dir}/result.pt")
+        torch.save(dict(renders=res_all, steps=steps, regrow=regrow), f"{out_dir}/result.pt")
+
+
+def _overflow_noop(p, opt, mesh):
+    """tests/test_regrow.py's sharded case: inflated scales at a capacity
+    of 256; then regrow and retry until the step applies (every rank
+    agrees: the counters are summed over the mesh). Returns what every
+    rank saw."""
+    from tpusplat_torch.camera import look_at_camera
+    from tpusplat_torch.config import regrow
+    from tpusplat_torch.parallel import sharded
+    from tpusplat_torch.train import step as tstep
+
+    params = _torch_params(p)
+    params = dataclasses.replace(params, log_scales=params.log_scales + 2.5)
+    cam = look_at_camera([0.2, 0.1, 6.0], [0, 0, 0], 64, 48, fov_deg=60.0, device="cpu")
+    cfg = RenderConfig(sh_degree=1, capacity=256, max_per_tile=2048, tile_chunk=4,
+                       gauss_chunk=16)
+    state0 = sharded.shard_state(tstep.create_train_state(params), mesh)
+    targets = torch.zeros((2, 48, 64, 3))
+    state1, m1 = sharded.sharded_train_step(state0, [cam, cam], targets, cfg, opt, mesh)
+    same = all(torch.equal(a, b) for a, b in (
+        (state1.params.means, state0.params.means), (state1.mu["sh"], state0.mu["sh"]),
+        (state1.grad_accum, state0.grad_accum)))
+    out = dict(overflow=int(m1["capacity_overflow"]), step=int(state1.step), same=same,
+               retries=0)
+    state2, m2 = state1, m1
+    while out["retries"] < 8:
+        cfg, changes = regrow(cfg, m2, state0.params.num_gaussians)
+        if changes is None:
+            break
+        out["retries"] += 1
+        state2, m2 = sharded.sharded_train_step(state1, [cam, cam], targets, cfg, opt, mesh)
+    out.update(step2=int(state2.step), overflow2=int(m2["capacity_overflow"]),
+               moved=not torch.equal(state2.params.means, state0.params.means))
+    everyone = [None] * mesh.data * mesh.tile
+    torch.distributed.all_gather_object(everyone, out)
+    return everyone
 
 
 def _summary(state, metrics, mesh):
@@ -129,7 +170,8 @@ def runs(tmp_path_factory):
     from tpusplat_torch.parallel.launch import spawn
 
     out = tmp_path_factory.mktemp("sharded")
-    inputs = dict(small=_jax_params(512, 5), targets=_targets(2, 64, 96))
+    inputs = dict(small=_jax_params(512, 5), targets=_targets(2, 64, 96),
+                  regrow=_jax_params(512, 3))
     spawn(_worker, 4, (inputs, str(out)), init_file=str(out / "init"), device="cpu")
     return inputs, torch.load(out / "result.pt", weights_only=False)
 
@@ -211,3 +253,15 @@ def test_overlap_step_matches_monolithic(runs, reduce):
         np.testing.assert_allclose(got["params"][f].numpy(), ref["params"][f].numpy(),
                                    atol=3e-6, err_msg=f)
     assert_moments_close(got, ref["mu"], ref["nu"], 1e-4)
+
+
+def test_sharded_train_step_overflow_is_noop(runs):
+    """tests/test_regrow.py::test_sharded_train_step_overflow_is_noop on the
+    2x2 mesh (the reference takes 2x4): the overflowed step leaves the
+    step count, the parameters, Adam's moments and the statistics as they
+    were on every rank; the retry at a regrown capacity applies the step."""
+    _, res = runs
+    for rank, r in enumerate(res["regrow"]):
+        assert r["overflow"] > 0 and r["step"] == 0 and r["same"], (rank, r)
+        assert 1 <= r["retries"] < 8 and r["overflow2"] == 0, (rank, r)
+        assert r["step2"] == 1 and r["moved"], (rank, r)

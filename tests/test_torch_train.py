@@ -178,13 +178,13 @@ def test_trainer_cli_tiny_run_on_cpu(tmp_path, capsys):
     assert load_ply(out, device="cpu").num_gaussians > 0
 
 
-@pytest.mark.parametrize("flag", [["--data", "x"], ["--holdout", "4"], ["--mesh", "2x4"],
-                                  ["--overlap"], ["--ckpt", "c.npz"],
-                                  ["--watchdog-secs", "10"], ["--xla"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2x4"], ["--overlap"], ["--xla"],
+                                  ["--holdout", "1"], ["--ckpt", "c"]])
 def test_trainer_rejects_unported_flags(flag, capsys, monkeypatch):
-    """The flags not ported yet; and --mesh and --overlap, which are, where
-    they cannot run: --mesh without a rank in the environment (it is
-    launched by torchrun), --overlap without --mesh."""
+    """--xla, which is not ported; --mesh and --overlap where they cannot
+    run: --mesh without a rank in the environment (it is launched by
+    torchrun), --overlap without --mesh; and, before any data is read,
+    --holdout 1 and a --ckpt that is not .npz."""
     from tpusplat_torch import trainer
 
     monkeypatch.delenv("RANK", raising=False)
@@ -192,7 +192,8 @@ def test_trainer_rejects_unported_flags(flag, capsys, monkeypatch):
     with pytest.raises(SystemExit) as e:
         trainer.main(["--device", "cpu", *flag])
     assert e.value.code == 2
-    want = {"--mesh": "torchrun", "--overlap": "needs --mesh"}.get(flag[0], "not ported")
+    want = {"--mesh": "torchrun", "--overlap": "needs --mesh", "--holdout": "must be >= 2",
+            "--ckpt": ".npz"}.get(flag[0], "not ported")
     assert want in capsys.readouterr().err
 
 

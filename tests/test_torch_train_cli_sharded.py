@@ -53,13 +53,15 @@ def _train_args(out, steps, *extra):
 def test_trainer_mesh_1x2(tmp_path):
     """A training capacity far too small (TPUSPLAT_CAPACITY=1024): the
     first steps overflow and regrow it for a strip; the eval still renders
-    the whole frame at its own capacity, 8 x N, without overflow."""
+    the whole frame at its own capacity, 8 x N, without overflow. The
+    checkpoint holds the whole state, gathered from both shards."""
     from tpusplat_torch.config import RenderConfig
     from tpusplat_torch.io.ply import load_ply
 
-    out = tmp_path / "mesh.ply"
-    rcs, err0, err1 = _launch("tpusplat_torch.trainer", _train_args(out, 10), tmp_path,
-                              "train", TPUSPLAT_CAPACITY="1024")
+    out, ckpt = tmp_path / "mesh.ply", tmp_path / "mesh.npz"
+    rcs, err0, err1 = _launch("tpusplat_torch.trainer",
+                              _train_args(out, 10, "--ckpt", str(ckpt)), tmp_path, "train",
+                              TPUSPLAT_CAPACITY="1024")
     assert rcs == [0, 0], err0[-3000:] + err1[-3000:]
     lines = _lines(err0)
     assert not _lines(err1)  # rank 1 logs nothing
@@ -74,6 +76,15 @@ def test_trainer_mesh_1x2(tmp_path):
     assert final[0]["capacity"] == RenderConfig().instance_capacity(n)
     params = load_ply(out, device="cpu")
     assert params.num_gaussians == 800 and bool(params.means.isfinite().all())  # the alive ones
+    with np.load(ckpt) as state:
+        assert len(state.files) == 6 + 3 * 5 + 4
+        for k in state.files:  # every per-Gaussian tensor whole: both shards
+            if k.startswith(("params.", "mu.", "nu.", "grad_", "max_")):
+                assert state[k].shape[0] == n, k
+        alive = state["params.alive"]
+        assert int(state["step"]) == 11 and int(alive.sum()) == 800
+        np.testing.assert_array_equal(state["params.means"][alive], params.means.numpy())
+        assert np.abs(state["mu.means"][alive]).max() > 0
 
 
 def test_trainer_mesh_1x2_overlap(tmp_path):

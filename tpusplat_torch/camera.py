@@ -86,6 +86,37 @@ def make_camera(
     return _camera(view, pos, tan_fovx, tan_fovy, width, height, near, far, device)
 
 
+def camera_from_world_view(
+    view_world_to_cam,
+    width: int,
+    height: int,
+    tan_fovx: float,
+    tan_fovy: float,
+    near: float = 0.2,
+    far: float = 1000.0,
+    device="cuda",
+) -> Camera:
+    """A Camera from any world-to-camera matrix (COLMAP, NeRF-synthetic).
+
+    The matrix maps world points to a camera frame with +x right, +y up and
+    -z forward (OpenGL), the frame ``make_camera`` builds before the
+    shader-space flips. The projection's aspect is ``tan_fovx / tan_fovy``,
+    which need not be ``width / height``."""
+    view = np.asarray(view_world_to_cam, np.float64)
+    cam_pos = -view[:3, :3].T @ view[:3, 3]
+    proj = perspective(tan_fovy, tan_fovx / tan_fovy, near, far) @ view
+    return Camera.from_matrices(
+        view=_FLIP_YZ @ view,
+        proj=_FLIP_Y @ proj,
+        cam_pos=cam_pos,
+        tan_fovx=tan_fovx,
+        tan_fovy=tan_fovy,
+        width=width,
+        height=height,
+        device=device,
+    )
+
+
 def look_at_camera(
     eye,
     target,

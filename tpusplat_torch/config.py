@@ -41,9 +41,9 @@ class RenderConfig:
         plain blend runs in fp32.
       tight_radius: opacity-aware tile AABB (changes only the tile lists,
         never the image).
-      debug_checks: the in-graph validation counters of the JAX package.
-        Not ported yet: ``render_stages`` raises ``NotImplementedError``
-        when it is set.
+      debug_checks: the validation counters of
+        :mod:`tpusplat_torch.ops.validate` in ``aux["debug"]``; ``render``
+        raises on a violation.
       strip_gauss_mult, strip_gauss_margin_rows, grad_exchange,
         grad_a2a_mult: the tile-sharded path's knobs (strip compaction's
         stream cap, the dense or compact gradient exchange and its bucket

@@ -1,5 +1,6 @@
-"""3DGS .ply scene IO (counterpart of ``tpusplat/io/ply.py``, numpy only;
-the ctypes fast path of ``native/`` is not ported yet).
+"""3DGS .ply scene IO (counterpart of ``tpusplat/io/ply.py``): the body is
+read by the C++ reader of ``native/`` (:mod:`tpusplat_torch.io.native_loader`)
+or by numpy.
 
 The standard 3DGS layout (``src/GSScene.cpp:17-24``): 62 float32 properties
 per vertex, ``x y z nx ny nz f_dc_0..2 f_rest_0..44 opacity scale_0..2
@@ -73,8 +74,10 @@ def raw_arrays_from_records(rec: np.ndarray) -> dict[str, np.ndarray]:
     )
 
 
-def load_ply(path: str | os.PathLike, device="cuda") -> GaussianParams:
-    """Load a 3DGS .ply into raw GaussianParams on ``device``."""
+def load_ply(path: str | os.PathLike, device="cuda", use_native: bool = True) -> GaussianParams:
+    """Load a 3DGS .ply into raw GaussianParams on ``device``. The body is
+    read by the native reader (built at first use; raises if it cannot be)
+    unless ``use_native`` is False, then by numpy."""
     with open(path, "rb") as f:
         num_vertices, props, fmt = _parse_header(f)
         if fmt != "binary_little_endian":
@@ -85,8 +88,13 @@ def load_ply(path: str | os.PathLike, device="cuda") -> GaussianParams:
             missing = [p for p in _PROPS if p not in names]
             if missing or any(t != "float" for t, _ in props):
                 raise ValueError(f"unsupported PLY vertex layout (missing {missing[:4]}...)")
-        rec = np.fromfile(f, dtype="<f4", count=num_vertices * len(props)).reshape(
-            num_vertices, len(props))
+        if use_native:
+            from tpusplat_torch.io import native_loader
+
+            rec = native_loader.read_records(path, f.tell(), num_vertices, len(props))
+        else:
+            rec = np.fromfile(f, dtype="<f4", count=num_vertices * len(props)).reshape(
+                num_vertices, len(props))
     if names != _PROPS:
         rec = rec[:, [names.index(p) for p in _PROPS]]
     return GaussianParams.create(**raw_arrays_from_records(np.ascontiguousarray(rec)),

@@ -4,7 +4,8 @@ reference's ``Renderer`` (``src/Renderer.cpp:366-426``).
 
 PyTorch runs eagerly, so there is no jit: each stage routes by the device
 of its tensors (CPU: plain PyTorch; CUDA: the hand-written kernels).
-``render_batch`` of the JAX package is not ported yet.
+``cfg.debug_checks`` adds the validation counters of
+:mod:`tpusplat_torch.ops.validate` to ``aux["debug"]``.
 """
 
 from __future__ import annotations
@@ -16,30 +17,35 @@ import warnings
 import torch
 
 from tpusplat_torch.config import RenderConfig
+from tpusplat_torch.ops import validate
 from tpusplat_torch.ops.binning import bin_and_sort
 from tpusplat_torch.ops.preprocess import preprocess
 from tpusplat_torch.ops.rasterize import rasterize
 from tpusplat_torch.types import Camera, GaussianParams
 
 
-def _check_cfg(cfg: RenderConfig) -> None:
+def _finish_aux(aux: dict, params: GaussianParams, pg, binned, img, cfg: RenderConfig):
+    """The per-Gaussian statistics of densification and, with
+    ``cfg.debug_checks``, the validation counters."""
+    aux["visible"] = pg.ntiles > 0
+    aux["radius"] = pg.radius
     if cfg.debug_checks:
-        raise NotImplementedError(
-            "debug_checks: the validation counters (ops/validate.py) are not ported yet")
+        aux["debug"] = {**validate.check_processed(pg),
+                        **validate.check_binned(binned, params.num_gaussians),
+                        **validate.check_image(img)}
+    return aux
 
 
 def render_stages(params: GaussianParams, camera: Camera, cfg: RenderConfig):
     """Full pipeline, returning the image and diagnostic aux outputs:
     transmittance, capacity_overflow (nonzero means grow the capacity),
     tile_overflow (plain path only), gauss_overflow, num_instances,
-    max_tile_count, visible and radius."""
-    _check_cfg(cfg)
+    max_tile_count, visible and radius; with ``cfg.debug_checks`` also
+    ``debug``, the validation counters (0-d int32 tensors)."""
     pg = preprocess(params, camera, cfg)
     binned = bin_and_sort(pg, camera.width, camera.height, cfg)
     img, aux = rasterize(pg, binned, camera.width, camera.height, cfg)
-    aux["visible"] = pg.ntiles > 0
-    aux["radius"] = pg.radius
-    return img, aux
+    return img, _finish_aux(aux, params, pg, binned, img, cfg)
 
 
 def render_profiled(params: GaussianParams, camera: Camera, cfg: RenderConfig):
@@ -49,7 +55,6 @@ def render_profiled(params: GaussianParams, camera: Camera, cfg: RenderConfig):
     (one synchronisation at the end of the frame); on the CPU with the host
     clock. The analogue of the reference's timestamp queries
     (``src/Renderer.cpp:484-699``)."""
-    _check_cfg(cfg)
     cuda = params.device.type == "cuda"
     marks = []
 
@@ -74,14 +79,15 @@ def render_profiled(params: GaussianParams, camera: Camera, cfg: RenderConfig):
         ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
     else:
         ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
-    aux["visible"] = pg.ntiles > 0
-    aux["radius"] = pg.radius
-    return img, aux, dict(zip(("preprocess", "bin+sort", "raster"), ms))
+    stage_ms = dict(zip(("preprocess", "bin+sort", "raster"), ms))
+    return img, _finish_aux(aux, params, pg, binned, img, cfg), stage_ms
 
 
 def render(params: GaussianParams, camera: Camera, cfg: RenderConfig | None = None):
-    """Render one image [H, W, 3] float32 (the ``draw()`` analogue)."""
-    img, _ = render_stages(params, camera, cfg or RenderConfig())
+    """Render one image [H, W, 3] float32 (the ``draw()`` analogue). With
+    ``cfg.debug_checks``, raises ``RuntimeError`` on any violation."""
+    img, aux = render_stages(params, camera, cfg or RenderConfig())
+    validate.raise_on_violations(aux)
     return img
 
 
@@ -116,3 +122,14 @@ def render_auto(
             stacklevel=2,
         )
     return img, aux, cfg
+
+
+def render_batch(params: GaussianParams, cameras: list[Camera],
+                 cfg: RenderConfig | None = None) -> torch.Tensor:
+    """Render same-resolution cameras, one :func:`render_stages` each, into
+    [B, H, W, 3] (the port has no stacked Camera: a batch is a list)."""
+    cfg = cfg or RenderConfig()
+    sizes = {(c.width, c.height) for c in cameras}
+    if len(sizes) != 1:
+        raise ValueError(f"render_batch: the cameras need one resolution, got {sorted(sizes)}")
+    return torch.stack([render_stages(params, cam, cfg)[0] for cam in cameras])
