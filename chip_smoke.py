@@ -82,7 +82,30 @@ Phases, one output line each; any failure exits non-zero:
      opacities after the update atol 2e-6, 3e-6 after an overlap step, the
      JAX package's bounds; Adam's moments, which hold the gradient's
      magnitude, within 1e-4 of their largest; compact against dense 3e-6
-     and 1e-5), with zero overflow and compaction active.
+     and 1e-5), with zero overflow and compaction active;
+ 12. session: the interactive loop (``run_interactive``) on a ``Session`` of
+     the garden scene at 1920x1080, fov 60, from (0, 0.5, 9), keys w w d
+     left up, profiled every second frame, the launch counters reset just
+     before and read just after (emission and forward every frame): the
+     position within 1e-9 of the motion constants' result, frame 0 and a
+     frame after ``resize(1280, 720)`` bit-equal to ``render_auto`` at the
+     same camera, the status and live stage lines in the overlay; the frame
+     ms, the EMA and the stage ms;
+ 13. dryrun: ``run_dryrun(4)``, four ranks on the one card over gloo (mesh
+     2x2): the sharded render against the one-process render, the overlap
+     step's loss against the monolithic one's, the compact exchange
+     against the dense one; every rank launches every kernel;
+ 14. profile_detail: the garden stage table and a ``torch.profiler``
+     window over three train steps (window ms, device-busy ms, idle share,
+     launches a step, the ten kernels with the most device time), and the
+     same steps unprofiled;
+ 15. gpu_gate: the gate's five checks (CUDA against the plain path at
+     100k/800^2 and its production block, the strip path, the golden
+     oracle at 6k/128^2, the compact exchange); fails unless all pass;
+ 16. bench_tools: kernel_bench (twice: inputs built, then cached),
+     plumb_bench, micro, strip_bench 8, measure_strip_projection and
+     scaling (two ranks on the card over gloo), each once at the garden
+     shapes, its JSON and seconds logged.
 The line before the last is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``.
 
@@ -1477,6 +1500,168 @@ def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DAT
     return launches
 
 
+# The session phase: scripted keys through the interactive loop at the
+# garden shapes, profiled every second frame, then a resize.
+SESSION_KEYS = ["w", "w", "d", "left", "up", None, "q"]
+SESSION_EYE, SESSION_RESIZE = (0.0, 0.5, 9.0), (1280, 720)
+# The dryrun's ranks, all on the one card over gloo (mesh 2x2); the strips of
+# the strip bench.
+DRYRUN_RANKS, BENCH_STRIPS = 4, 8
+
+
+def phase_session(torch, dev, params, cfg):
+    """The interactive session at the garden shapes: ``run_interactive``
+    on scripted keys, the launch counters reset just before and read just
+    after; the pose against the motion constants, frame 0 and a frame after
+    a resize bit-equal to ``render_auto`` at the same camera."""
+    import io
+
+    import numpy as np
+
+    from tpusplat_torch.camera import make_camera
+    from tpusplat_torch.interactive import run_interactive
+    from tpusplat_torch.ops import emission, rasterize
+    from tpusplat_torch.render import render_auto
+    from tpusplat_torch.session import MOVE_STEP, Session, SessionConfig
+
+    w, h = GARDEN["width"], GARDEN["height"]
+    sess = Session(SessionConfig(width=w, height=h, fov=60.0, render=cfg), params=params,
+                   device=dev)
+    # The identity rotation looks down -z: from (0, 0.5, 9), at the scene.
+    sess.position = np.array(SESSION_EYE)
+    frames, stages = [], []
+    draw, draw_profiled = sess.draw, sess.draw_profiled
+
+    def recorded(fn, sink):
+        def call():
+            pose = (sess.position.copy(), sess.rotation.copy(), sess.config.render)
+            out = fn()
+            sink.append((pose, out))
+            return out
+        return call
+
+    sess.draw = recorded(draw, frames)
+    sess.draw_profiled = recorded(draw_profiled, stages)
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    emission.LAUNCHES = rasterize.FORWARD_LAUNCHES = 0
+    stats = run_interactive(sess, keys=SESSION_KEYS, out=text, cols=96, profile_every=2)
+    launches = dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES)
+    seconds = time.perf_counter() - t0
+    out = text.getvalue()
+    n_frames = len([k for k in SESSION_KEYS if k not in (None, "q")])
+    if stats["frames"] != n_frames or len(frames) + len(stages) != n_frames:
+        fail(f"session: {stats['frames']} frames, expected {n_frames}")
+    if min(launches.values()) < n_frames:
+        fail(f"session: a kernel was not launched every frame ({launches})")
+    # Three moves (w, w, d) from the identity rotation, then two rotations.
+    want = np.array(SESSION_EYE) + MOVE_STEP * np.array([1.0, 0.0, -2.0])
+    if np.abs(np.asarray(stats["position"]) - want).max() > 1e-9:
+        fail(f"session: position {stats['position']}, expected {want.tolist()}")
+    if "(live)" not in out or f"frame {n_frames} " not in out or "instances" not in out:
+        fail("session: the overlay lacks the status line or the live stage line")
+
+    def reference(pose, size):
+        pos, rot, rcfg = pose
+        cam = make_camera(pos, rot, *size, fov_deg=60.0, device=dev)
+        with torch.no_grad():
+            return render_auto(params, cam, rcfg)[0]
+
+    (pose0, (img0, aux0)) = frames[0]
+    check_equal("session frame 0 against render_auto", img0, reference(pose0, (w, h)))
+    if float(img0.max()) <= 0.0 or int(aux0["capacity_overflow"]):
+        fail("session: frame 0 is black or truncated")
+    sess.resize(*SESSION_RESIZE)
+    img_r, _ = sess.draw()
+    pose_r = frames[-1][0]
+    if img_r.shape != (SESSION_RESIZE[1], SESSION_RESIZE[0], 3):
+        fail(f"session: the resized frame is {tuple(img_r.shape)}")
+    check_equal("session frame after resize against render_auto", img_r,
+                reference(pose_r, SESSION_RESIZE))
+    frame_ms = [float(line.split()[2]) for line in out.splitlines()
+                if line.startswith("frame ")]
+    log(phase="session", width=w, height=h, keys=SESSION_KEYS, frames=stats["frames"],
+        seconds=seconds, frame_ms=frame_ms, ema_ms=stats["ema_ms"],
+        stage_ms=[st[2] for _, st in stages], position=stats["position"],
+        num_instances=[int(a["num_instances"]) for _, (_, a) in frames],
+        capacity=sess.config.render.instance_capacity(params.num_gaussians),
+        launches=launches, frame0="bit-equal to render_auto",
+        resized=dict(size=SESSION_RESIZE, frame="bit-equal to render_auto"))
+    return launches
+
+
+def phase_dryrun(torch, dev):
+    """``run_dryrun`` as four ranks on the one card over gloo (mesh 2x2):
+    every assertion of the JAX dryrun, and each rank launches every kernel."""
+    from tpusplat_torch.parallel.dryrun import mesh_dims, run_dryrun
+
+    t0 = time.perf_counter()
+    run_dryrun(DRYRUN_RANKS, device="cuda:0" if dev.type == "cuda" else "cpu",
+               backend="gloo")
+    log(phase="dryrun", ranks=DRYRUN_RANKS, mesh="x".join(map(str, mesh_dims(DRYRUN_RANKS))),
+        backend="gloo", seconds=time.perf_counter() - t0,
+        result="sharded render == one-process render; overlap == monolithic loss; "
+               "compact == dense exchange; every kernel launched on every rank")
+
+
+def phase_profile_detail(torch, dev):
+    """The per-stage profiler at the garden config, with its profiler
+    window's device idle share."""
+    from tpusplat_torch.bench import profile_detail
+
+    t0 = time.perf_counter()
+    res = profile_detail.run("garden", dev)
+    win = res["train_window"]
+    log(phase="profile_detail", seconds=time.perf_counter() - t0, **res)
+    if win["overflow"]:
+        fail(f"profile_detail: the profiled train steps overflowed ({win['overflow']})")
+    if not win["profiler_device_events"]:
+        print("chip_smoke: profile_detail: the profiler window recorded no device activity",
+              file=sys.stderr)
+    return res
+
+
+def phase_gpu_gate(torch, dev):
+    """The GPU gate's five checks; the run fails unless every one passed."""
+    from tpusplat_torch.bench import gpu_gate
+
+    t0 = time.perf_counter()
+    out = gpu_gate.run(dev)
+    log(phase="gpu_gate", seconds=time.perf_counter() - t0, **out)
+    failed = [k for k, v in out.items() if isinstance(v, dict) and v.get("pass") is False]
+    if not out["pass"]:
+        fail(f"gpu_gate: {failed} failed")
+    return out
+
+
+def phase_bench_tools(torch, dev):
+    """Each bench module once at the garden shapes (kernel_bench twice: its
+    inputs built, then read from its cache), its JSON logged."""
+    from tpusplat_torch.bench import kernel_bench, micro, plumb_bench, profile_detail, scaling
+    from tpusplat_torch.bench import strip_bench
+    from tpusplat_torch.bench.strip_projection import measure_strip_projection
+
+    out = {}
+    for name, fn in (
+            ("kernel_bench", lambda: kernel_bench.run("garden", dev)),
+            # again, from the inputs the first run cached
+            ("kernel_bench_cached", lambda: kernel_bench.run("garden", dev)),
+            ("plumb_bench", lambda: plumb_bench.run(device=dev)),
+            ("micro", lambda: micro.run(dev)),
+            ("strip_bench", lambda: strip_bench.run(BENCH_STRIPS, dev)),
+            ("strip_projection", lambda: measure_strip_projection(
+                *profile_detail.scene("garden", dev), BENCH_STRIPS,
+                t_full_ms=out["strip_bench"]["t_full_frame_1card_ms"])),
+            ("scaling", lambda: scaling.run(2, "cuda:0" if dev.type == "cuda" else "cpu",
+                                            "gloo"))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        log(phase=f"bench_tools.{name}", seconds=time.perf_counter() - t0, **out[name])
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1570,10 +1755,17 @@ def run(torch, dev, kind: str, smi: str) -> int:
     phase_trainer_rehearsal(torch, dev)
     data = phase_data_training(torch, dev, params, cams, cfg)
     timed.update(phase_sharded_emulated(torch, dev, params, cams[0], cfg))
+    session = phase_session(torch, dev, params, cfg)
     del params
     torch.cuda.empty_cache()
     phase_multi_process(torch, "sharded_two_process", [TWO_PROCESS_MESH],
                         "cuda:0" if dev.type == "cuda" else "cpu", "gloo")
+    phase_dryrun(torch, dev)
+    phase_profile_detail(torch, dev)
+    torch.cuda.empty_cache()
+    phase_gpu_gate(torch, dev)
+    torch.cuda.empty_cache()
+    phase_bench_tools(torch, dev)
 
     sources = dict(
         emission=("tpusplat_torch/csrc/emission.cu", "tpusplat/ops/emission.py:76"),
@@ -1598,6 +1790,7 @@ def run(torch, dev, kind: str, smi: str) -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=training[name] if name in training else t["launches"],
             launches_serving=serving.get(name), launches_data_training=data.get(name),
+            launches_session=session.get(name),
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
             **{k: t[k] for k in ("kernel_ms", "ms_is", "bound_unculled_ms") if k in t}))

@@ -60,6 +60,18 @@ def _rows(n: int, mesh: RenderMesh) -> slice:
     return slice(mesh.t * k, (mesh.t + 1) * k)
 
 
+def pad_params(params: GaussianParams, multiple: int) -> GaussianParams:
+    """The scene padded with dead Gaussians (zeros, ``alive`` False) to a
+    multiple of ``multiple`` Gaussians, so that the tile shards are even."""
+    pad = -params.num_gaussians % multiple
+    if not pad:
+        return params
+    return GaussianParams(**{f.name: torch.cat([getattr(params, f.name),
+                                                getattr(params, f.name).new_zeros(
+                                                    (pad, *getattr(params, f.name).shape[1:]))])
+                             for f in dataclasses.fields(params)})
+
+
 def shard_params(params: GaussianParams, mesh: RenderMesh) -> GaussianParams:
     """This rank's shard of the parameters (the counterpart of
     ``params_sharding``): rows [t N/T, (t+1) N/T)."""

@@ -3,8 +3,14 @@
 Renders one or more cameras to PNG files and prints one JSON line per frame
 to stderr. Run as ``python -m tpusplat_torch.viewer test -w 1920 --height
 1080 --orbit 3``. The flags are those of ``apps/viewer.py`` plus
-``--device`` and ``--dist-init``; ``--interactive`` and ``--xla`` are not
-ported yet. ``TPUSPLAT_*`` environment variables apply under the flags.
+``--device`` and ``--dist-init``, without ``--xla``: the port routes by
+tensor device, and ``--device cpu`` runs the plain path. ``TPUSPLAT_*``
+environment variables apply under the flags.
+
+``-i/--interactive`` runs the keyboard-driven terminal loop
+(:mod:`tpusplat_torch.interactive`: wasd/ec move, arrows look, q quits) on
+a :class:`~tpusplat_torch.session.Session` at ``--camera`` with the tight
+radius, ``--cols`` characters wide, and prints one JSON line of stats.
 
 ``--mesh DATAxTILE`` renders through the tile-sharded path, one process per
 rank (``torchrun --nproc-per-node=DATA*TILE -m tpusplat_torch.viewer ...
@@ -47,8 +53,16 @@ def main(argv=None):
                         "(Gaussians and image tile rows over TILE); one process per rank")
     p.add_argument("--dist-init", default="env://",
                    help="with --mesh: init method of the process group")
+    p.add_argument("-i", "--interactive", action="store_true",
+                   help="keyboard-driven terminal loop (wasd/ec move, arrows look, q quit) "
+                        "with live metrics")
+    p.add_argument("--cols", type=int, default=96,
+                   help="interactive terminal preview width in characters")
     p.add_argument("-v", "--verbose", action="store_true")
     args = p.parse_args(argv)
+    if args.mesh and args.interactive:
+        p.error("--mesh is not supported with --interactive (the terminal "
+                "loop drives the single-device Session); drop one of them")
     from tpusplat_torch.parallel.mesh import mesh_dims_arg
 
     mesh_dims = mesh_dims_arg(p, args.mesh)
@@ -83,6 +97,8 @@ def _view(args, device, mesh):
 
     # CLI > env > defaults, as apps/viewer.py.
     cfg = dataclasses.replace(RenderConfig().with_env_overrides(), sh_degree=args.sh_degree)
+    if args.interactive:
+        return _interactive(args, params, cfg, device)
 
     frames = max(args.orbit, 1)
     center = np.asarray(args.target)
@@ -120,21 +136,25 @@ def _view(args, device, mesh):
 
 
 
+def _interactive(args, params, cfg, device):
+    from tpusplat_torch.interactive import run_interactive
+    from tpusplat_torch.session import Session, SessionConfig
+
+    sess = Session(SessionConfig(width=args.width, height=args.height, fov=args.fov,
+                                 render=dataclasses.replace(cfg, tight_radius=True)),
+                   params=params, device=device)
+    sess.position = np.asarray(args.camera, np.float64)
+    stats = run_interactive(sess, cols=args.cols)
+    print(json.dumps(dict(frames=stats["frames"], seconds=round(stats["seconds"], 2),
+                          ema_ms=round(stats["ema_ms"] or 0.0, 1))), file=sys.stderr)
+
+
 def _shard(params, mesh):
     """This rank's shard, the scene padded with dead Gaussians to a multiple
     of the tile count."""
-    import dataclasses as dc
+    from tpusplat_torch.parallel.sharded import pad_params, shard_params
 
-    from tpusplat_torch.parallel.sharded import shard_params
-
-    pad = -params.num_gaussians % mesh.tile
-    if pad:
-        params = type(params)(**{
-            f.name: torch.cat([getattr(params, f.name),
-                               getattr(params, f.name).new_zeros(
-                                   (pad, *getattr(params, f.name).shape[1:]))])
-            for f in dc.fields(params)})
-    return shard_params(params, mesh)
+    return shard_params(pad_params(params, mesh.tile), mesh)
 
 
 def _render_mesh(params, cam, cfg, mesh, tries: int = 4):
