@@ -69,10 +69,19 @@ Phases, one output line each; any failure exits non-zero:
      compaction active, or the run fails) through
      ``exchange_render_emulated``, forward and backward, the launch counters
      reset just before and read just after; the segment reduce's
-     streamed-target and multi-range kernels against their plain versions
-     on that strip's ids (atol 1e-4), launched twice and bit-equal, timed
-     beside their bytes bounds; the strip's split (binning, forward kernel,
-     backward kernel, gid sort, reduce, owner reduce);
+     streamed-target and multi-range kernels on that strip's ids, with its
+     gradient rows and with seeded random rows: bit-equal to the runs route
+     (the dense kernel over runs searched by ``torch.searchsorted``,
+     ``target_runs`` and ``multirange_runs``), launched twice and
+     bit-equal, within atol 1e-4 of their plain versions; both on
+     adversarial exchange blocks (a block wholly of sentinels, a run of 100
+     rows, an id in every block, the id n - 1, NaN sentinel rows; values
+     exact in float32, so bit-equal to the plain versions too); each timed
+     as its C call alone and as its wrapper beside the runs route, its
+     bytes bound, its plain version and, for the multi-range mode, one
+     ``index_add_``; the strip's split (binning, forward kernel, backward
+     kernel, gid sort, bucket_targets, reduce, owner_local_ids, owner
+     reduce);
  11. sharded_two_process: two processes on the one card (gloo through host
      memory: NCCL cannot run two ranks on one card), mesh 1x2, 100k
      Gaussians at 800x800, SH3: one ``sharded_train_step`` with the dense
@@ -123,6 +132,7 @@ import dataclasses
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -439,6 +449,94 @@ def adversarial_ids(torch, n, dev, seed):
     rows = torch.randint(-64, 65, (9, gid.shape[0]), generator=g, device=dev) / 64.0
     rows = torch.where(gid[None, :] < n, rows, float("nan"))
     return rows, gid, torch.searchsorted(gid, ids, out_int32=True)
+
+
+def adversarial_exchange(torch, dev, seed, n=200_000, s=4, cap=40_004):
+    """Inputs of both compact-exchange modes that stress their searches:
+    (rows, sorted gid, targets, n) of the streamed-target mode and two
+    (rows, local ids, n_local) of the multi-range mode. ``cap`` is not a
+    multiple of 32, so warps straddle block boundaries. Streamed-target:
+    the Gaussians' rows 0-5 each (a third none), a run of 100 rows at n/2
+    and 3 rows at n - 1, a tail of 1000 sentinel rows (id n, NaN); the
+    targets are S owner blocks of the Gaussians with rows (and every 50th
+    without) as ``bucket_targets`` builds them, block 1 wholly of
+    sentinels, the id 777 in each of the others. Multi-range: S
+    sorted blocks of distinct local ids in [0, n/S), the id 777 in every
+    block, a run of 100 rows of one id in block 1, the id n/S - 1 in block
+    3, the sentinel n/S at each tail (rows NaN); the second copy has block
+    2 wholly of sentinels. Values are multiples of 2^-6 in [-1, 1], so
+    every partial sum is exact in float32 and any order of the adds gives
+    the same sums."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def values(shape, ids, sentinel):
+        v = torch.randint(-64, 65, shape, generator=g, device=dev) / 64.0
+        return torch.where(ids[None, :] < sentinel, v, float("nan"))
+
+    counts = torch.randint(0, 6, (n,), generator=g, device=dev)
+    counts = torch.where(torch.rand(n, generator=g, device=dev) < 1 / 3, 0, counts)
+    counts[n // 2], counts[n - 1] = 100, 3
+    ids = torch.arange(n, **i32)
+    gid = torch.cat([torch.repeat_interleave(ids, counts), torch.full((1000,), n, **i32)])
+    stream = (counts > 0) | (ids % 50 == 0)
+    per, blocks = n // s, []
+    for k in range(s):
+        own = ids[k * per:(k + 1) * per][stream[k * per:(k + 1) * per]]
+        own = own[:0] if k == 1 else torch.unique(torch.cat([own, ids[777:778]]))
+        if own.numel() > cap:
+            fail(f"adversarial exchange: owner {k} has {own.numel()} ids, cap {cap}")
+        blocks.append(torch.cat([own, torch.full((cap - own.numel(),), n, **i32)]))
+    streamed = (values((9, gid.shape[0]), gid, n), gid, torch.cat(blocks), n)
+
+    n_local = per
+    lid = torch.full((s, cap), n_local, **i32)
+    for b in range(s):
+        k = int(torch.randint(cap // 2, cap - 200, (1,), generator=g, device=dev))
+        own = torch.randperm(n_local, generator=g, device=dev)[:k].to(torch.int32)
+        extra = [ids[777:778], torch.full((100 if b == 1 else 0,), 1234, **i32),
+                 torch.full((1 if b == 3 else 0,), n_local - 1, **i32)]
+        own = torch.sort(torch.cat([own[(own != 777) & (own != 1234) & (own != n_local - 1)],
+                                    *extra])).values
+        lid[b, :own.numel()] = own
+    lid = lid.reshape(-1)
+    lid_empty = lid.view(s, cap).clone()
+    lid_empty[2] = n_local
+    lid_empty = lid_empty.reshape(-1)
+    multirange = [(values((9, s * cap), x, n_local), x, n_local) for x in (lid, lid_empty)]
+    return streamed, multirange, s
+
+
+def check_modes_adversarial(torch, dev):
+    """Both compact-exchange modes on :func:`adversarial_exchange`'s blocks:
+    each bit-equal to the runs route and to its plain version, and from
+    launch to launch; sentinel targets 0."""
+    from tpusplat_torch.ops import segment_reduce as sr
+
+    (rows, gid, targets, n), multirange, s = adversarial_exchange(torch, dev, seed=11)
+    got = sr.segment_reduce_targets(rows, gid, targets, n)
+    m = targets.shape[0]
+    check_equal("adversarial streamed-target reduce, runs route", got,
+                sr._reduce_ranges(rows, *sr.target_runs(gid, targets, n), 1, m))
+    check_equal("adversarial streamed-target reduce, plain", got,
+                sr.segment_reduce_targets_plain(rows, gid, targets, n))
+    check_equal("adversarial streamed-target reduce, two launches", got,
+                sr.segment_reduce_targets(rows, gid, targets, n))
+    if bool(got[:, targets >= n].any()):
+        fail("adversarial streamed-target reduce: a sentinel target is not 0")
+    out = dict(targets=m, sentinel_targets=int((targets >= n).sum()), rows=gid.shape[0])
+    for name, (m_rows, lid, n_local) in zip(("repeated_ids", "sentinel_block"), multirange):
+        got = sr.segment_reduce_multirange(m_rows, lid, n_local, s)
+        check_equal(f"adversarial multi-range reduce ({name}), runs route", got,
+                    sr._reduce_ranges(m_rows, *sr.multirange_runs(lid, n_local, s), s, n_local))
+        check_equal(f"adversarial multi-range reduce ({name}), plain", got,
+                    sr.segment_reduce_multirange_plain(m_rows, lid, n_local))
+        check_equal(f"adversarial multi-range reduce ({name}), two launches", got,
+                    sr.segment_reduce_multirange(m_rows, lid, n_local, s))
+        if not bool(torch.isfinite(got).all()):
+            fail(f"adversarial multi-range reduce ({name}): not finite")
+        out[name] = dict(live_rows=int((lid < n_local).sum()))
+    return out
 
 
 def phase_parity(torch, dev):
@@ -968,42 +1066,100 @@ def phase_sharded_emulated(torch, dev, params, cam, cfg):
         targets = cg.bucket_targets(stream_ids, st)
         k0 = torch.arange(SHARDED_TILE, dtype=torch.int32, device=dev) * st.n_local
         lid = cg.owner_local_ids(targets, k0, st)
-        g_red = sr.segment_reduce_targets(rows, gid_s, targets, n)
         r_rows, _ = cg.sort_by_id(random_rows(torch, gid, n, seed=9), gid)
         live = int((gid_s < n).sum())
-        m = targets.shape[0]
+        live_x = int((lid < st.n_local).sum())
+        m, n_loc = targets.shape[0], st.n_local
+
+        # The runs route: the dense kernel over the runs torch.searchsorted
+        # finds, the statement of which rows each output sums and in what
+        # order; each mode must match it bit for bit.
+        def runs_targets(r):
+            return sr._reduce_ranges(r, *sr.target_runs(gid_s, targets, n), 1, m)
+
+        def runs_multirange(g_rows):
+            return sr._reduce_ranges(g_rows, *sr.multirange_runs(lid, n_loc, SHARDED_TILE),
+                                     SHARDED_TILE, n_loc)
+
+        g_red = sr.segment_reduce_targets(rows, gid_s, targets, n)
         r_red = sr.segment_reduce_targets(r_rows, gid_s, targets, n)
-        err_t = check_close("streamed-target reduce", r_red,
-                            sr.segment_reduce_targets_plain(r_rows, gid_s, targets, n), atol=1e-4)
+        check_equal("streamed-target reduce, runs route (strip rows)", g_red, runs_targets(rows))
+        check_equal("streamed-target reduce, runs route (random rows)", r_red,
+                    runs_targets(r_rows))
         check_equal("streamed-target reduce, two launches", g_red,
                     sr.segment_reduce_targets(rows, gid_s, targets, n))
-        live_x = int((lid < st.n_local).sum())
-        err_m = check_close("multi-range reduce",
-                            sr.segment_reduce_multirange(r_red, lid, st.n_local, SHARDED_TILE),
-                            sr.segment_reduce_multirange_plain(r_red, lid, st.n_local),
-                            atol=1e-4)
-        check_equal("multi-range reduce, two launches",
-                    sr.segment_reduce_multirange(g_red, lid, st.n_local, SHARDED_TILE),
-                    sr.segment_reduce_multirange(g_red, lid, st.n_local, SHARDED_TILE))
+        err_t = check_close("streamed-target reduce", r_red,
+                            sr.segment_reduce_targets_plain(r_rows, gid_s, targets, n), atol=1e-4)
+        dense = sr.segment_reduce_multirange(g_red, lid, n_loc, SHARDED_TILE)
+        r_dense = sr.segment_reduce_multirange(r_red, lid, n_loc, SHARDED_TILE)
+        check_equal("multi-range reduce, runs route (strip rows)", dense, runs_multirange(g_red))
+        check_equal("multi-range reduce, runs route (random rows)", r_dense,
+                    runs_multirange(r_red))
+        check_equal("multi-range reduce, two launches", dense,
+                    sr.segment_reduce_multirange(g_red, lid, n_loc, SHARDED_TILE))
+        err_m = check_close("multi-range reduce", r_dense,
+                            sr.segment_reduce_multirange_plain(r_red, lid, n_loc), atol=1e-4)
+        adversarial = check_modes_adversarial(torch, dev)
+
+        # The library yardstick of the multi-range mode, never used by the
+        # port: one index_add_ into n_local + 1 columns, the sentinel's last
+        # (its 860k sentinel rows all add into that one column); and one of
+        # the live rows alone, picked beforehand, as the dense mode's
+        # yardstick is.
+        lid_l = torch.clamp_max(lid, n_loc).long()
+        keep = lid < n_loc
+        k_lid, k_rows = lid[keep].long(), g_red[:, keep].contiguous()
+
+        def library_multirange():
+            return torch.zeros((9, n_loc + 1), device=dev).index_add_(1, lid_l, g_red)[:, :n_loc]
+
+        def library_live():
+            return torch.zeros((9, n_loc), device=dev).index_add_(1, k_lid, k_rows)
+
+        check_close("multi-range reduce, index_add_", library_multirange(), dense, atol=1e-4)
+        check_close("multi-range reduce, index_add_ of the live rows", library_live(), dense,
+                    atol=1e-4)
+        out_t = torch.empty((9, m), device=dev)
+        out_m = torch.empty((9, n_loc), device=dev)
         out = {}
+        # Each mode in turns with the runs route: route, wrapper, wrapper,
+        # route; the C call alone on buffers made beforehand.
+        route_t = [cuda_ms(torch, lambda: runs_targets(rows), reps=20)]
+        wrapper_t = [cuda_ms(torch, lambda: sr.segment_reduce_targets(rows, gid_s, targets, n),
+                             reps=20) for _ in range(2)]
+        route_t.append(cuda_ms(torch, lambda: runs_targets(rows), reps=20))
         out["segment_reduce_targets"] = dict(
-            max_abs_err=err_t,
-            ms=cuda_ms(torch, lambda: sr.segment_reduce_targets(rows, gid_s, targets, n),
-                       reps=20),
+            max_abs_err=err_t, ms=statistics.median(wrapper_t), wrapper_ms=wrapper_t,
+            ms_is="the wrapper's calls back to back (the median of two readings); a launch is one C "
+                  "call, which searches the runs and sums them",
+            kernel_ms=cuda_ms(torch, lambda: sr.launch_targets(rows, gid_s, targets, n, out_t),
+                              reps=20),
+            runs_route_ms=route_t,
             plain_ms=cuda_ms(torch, lambda: sr.segment_reduce_targets_plain(
                 rows, gid_s, targets, n), reps=5),
             library_ms=None,
+            library_is="none: no single PyTorch call sums a sorted slab's rows per target",
             # 9 values per live row, the targets; 9 sums per target
             bound=bound(4 * (9 * live + m + 9 * m), 9 * live))
+        route_m = [cuda_ms(torch, lambda: runs_multirange(g_red), reps=20)]
+        wrapper_m = [cuda_ms(torch, lambda: sr.segment_reduce_multirange(
+            g_red, lid, n_loc, SHARDED_TILE), reps=20) for _ in range(2)]
+        route_m.append(cuda_ms(torch, lambda: runs_multirange(g_red), reps=20))
         out["segment_reduce_multirange"] = dict(
-            max_abs_err=err_m,
-            ms=cuda_ms(torch, lambda: sr.segment_reduce_multirange(
-                g_red, lid, st.n_local, SHARDED_TILE), reps=20),
+            max_abs_err=err_m, ms=statistics.median(wrapper_m), wrapper_ms=wrapper_m,
+            ms_is="the wrapper's calls back to back (the median of two readings); a launch is one C "
+                  "call, which searches the runs and sums them",
+            kernel_ms=cuda_ms(torch, lambda: sr.launch_multirange(
+                g_red, lid, n_loc, SHARDED_TILE, out_m), reps=20),
+            runs_route_ms=route_m,
             plain_ms=cuda_ms(torch, lambda: sr.segment_reduce_multirange_plain(
-                g_red, lid, st.n_local), reps=5),
-            library_ms=None,
-            # 9 values per live row, the ids; 9 sums per local Gaussian
-            bound=bound(4 * (9 * live_x + m + 9 * st.n_local), 9 * live_x))
+                g_red, lid, n_loc), reps=5),
+            library_ms=cuda_ms(torch, library_multirange, reps=20),
+            library_is="torch.zeros + index_add_ of all S x cap rows into n_local + 1 columns",
+            library_live_ms=cuda_ms(torch, library_live, reps=20),
+            # 9 values and the id per live row; 9 sums per local Gaussian. A
+            # block's sentinel tail is found by a search and never read.
+            bound=bound(4 * (9 * live_x + live_x + 9 * n_loc), 9 * live_x))
         for v in out.values():
             v["bound_ms"], v["bound_by"] = v.pop("bound")
 
@@ -1017,16 +1173,21 @@ def phase_sharded_emulated(torch, dev, params, cam, cfg):
                 attr, starts, ends, simg, tmap, cot[0].contiguous(), torch.zeros_like(tmap),
                 tiles_x, row0, w, crop_h, cfg), reps=5),
             gid_sort=cuda_ms(torch, lambda: cg.sort_by_id(d_attr, gid), reps=5),
+            bucket_targets=cuda_ms(torch, lambda: cg.bucket_targets(stream_ids, st), reps=5),
             reduce=cuda_ms(torch, lambda: sr.segment_reduce_targets(
-                rows, gid_s, cg.bucket_targets(stream_ids, st), n), reps=5),
+                rows, gid_s, targets, n), reps=5),
+            owner_local_ids=cuda_ms(torch, lambda: cg.owner_local_ids(targets, k0, st), reps=5),
             owner_reduce=cuda_ms(torch, lambda: sr.segment_reduce_multirange(
-                g_red, cg.owner_local_ids(targets, k0, st), st.n_local, SHARDED_TILE), reps=5))
+                g_red, lid, n_loc, SHARDED_TILE), reps=5))
+    # The timing loops' launches count on no path.
+    sr.TARGETS_LAUNCHES = sr.MULTIRANGE_LAUNCHES = 0
     log(phase="sharded_emulated", n=n, width=w, height=h, tile_shards=SHARDED_TILE,
         strip_rows=[row0, row0 + nrows], compaction=dict(active=True, gauss_capacity=gcap,
                                                          strip_visible=visible),
         capacity=st.cap_shard, num_instances=live, bucket_cap=cg.a2a_bucket_cap(st),
         targets=m, owner_rows=live_x, counters=counters, path_ms=e0.elapsed_time(e1),
         launches=launches, split_ms=split, forward_max_abs_err=err_f,
+        adversarial=adversarial,
         kernels={k: {kk: vv for kk, vv in v.items()} for k, v in out.items()})
     for k in out:
         out[k]["launches"] = launches[k]
@@ -1793,7 +1954,9 @@ def run(torch, dev, kind: str, smi: str) -> int:
             launches_session=session.get(name),
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
-            **{k: t[k] for k in ("kernel_ms", "ms_is", "bound_unculled_ms") if k in t}))
+            **{k: t[k] for k in ("kernel_ms", "ms_is", "wrapper_ms", "runs_route_ms",
+                                 "library_is", "library_live_ms", "bound_unculled_ms")
+               if k in t}))
     if any(training[k] < len(cams) for k in training) or \
             any(k["launches"] < 1 for k in kernels):
         fail(f"launch counts {training} below one a step, or a sharded mode unlaunched")

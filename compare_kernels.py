@@ -4,14 +4,16 @@ chip_smoke.py's garden shapes, on one GPU.
     python3 compare_kernels.py KERNEL NAME=DIR [NAME=DIR ...]
 
 KERNEL is ``forward`` (``rasterize_forward.cu``), ``backward``
-(``rasterize_backward.cu``) or ``emission`` (``emission.cu``). Each DIR holds
+(``rasterize_backward.cu``), ``emission`` (``emission.cu``) or
+``segment_reduce`` (``segment_reduce.cu``, its dense mode). Each DIR holds
 another version of that source with the headers it includes, for example
 the parent commit's, written out with ``git show
 HEAD~1:tpusplat_torch/csrc/<source>`` (and ``blend_pair.cuh``,
 ``cull.cuh`` where it includes them). No such version stays in the tree.
 Each is built with nvcc (the ptxas report is printed, and whether its
-machine code equals the tree's, where ``cuobjdump`` is there; a version
-that does not build is reported and left out), checked
+machine code equals the tree's, where ``cuobjdump`` is there, for the
+whole library and for each kernel the two share; a version that does not
+build is reported and left out), checked
 against the tree's kernel on the same inputs and timed with CUDA events
 in turns: the tree's kernel, each version, each version again in reverse
 order, the tree's again.
@@ -27,6 +29,12 @@ order, the tree's again.
   with its allocations as the tree's wrapper makes it (``call_ms``); and,
   where ``torch.profiler`` sees device time, the device time of each
   kernel by name.
+- segment_reduce: a version keeps ``tpusplat_segment_reduce`` (the dense
+  mode); its sums of seeded random rows over the garden frame's sorted
+  ids must be bit-equal to the tree's. Every version, the tree's too, is
+  timed through its bare C call on an output allocated in the call. The other two modes have C
+  interfaces of their own and are held to the dense kernel over searched
+  runs by chip_smoke.py.
 
 One JSON line per phase; the last is the summary, with the card's name and
 power limit.
@@ -47,16 +55,17 @@ import chip_smoke as cs
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT = ROOT / "build" / "compare_kernels"
 SOURCES = dict(forward="rasterize_forward", backward="rasterize_backward",
-               emission="emission")
+               emission="emission", segment_reduce="segment_reduce")
 p_, i_, f_, ll_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = dict(
     tpusplat_forward=[p_, ll_, p_, p_, i_, i_, i_, i_, i_, i_, i_, f_, f_, f_, p_, p_, p_],
     tpusplat_backward=[p_, ll_, p_, p_, i_, i_, i_, i_, i_, i_, i_, f_, f_, f_,
                        p_, p_, p_, p_, p_, p_],
     tpusplat_emit=[p_, p_, p_, p_, p_, i_, p_, i_, i_, i_, i_, p_, p_, p_, p_, p_, p_],
+    tpusplat_segment_reduce=[p_, ll_, p_, p_, i_, i_, p_, p_],
 )
 ENTRY = dict(forward="tpusplat_forward", backward="tpusplat_backward",
-             emission="tpusplat_emit")
+             emission="tpusplat_emit", segment_reduce="tpusplat_segment_reduce")
 
 
 def log(**kw):
@@ -64,8 +73,10 @@ def log(**kw):
 
 
 def sass(lib: pathlib.Path):
-    """The library's machine code without addresses, or None where
-    ``cuobjdump`` is missing."""
+    """The library's machine code without addresses or padding, by kernel
+    ({name: [instructions]}; in a name, the anonymous namespace's prefix
+    dropped and each run of 8 or more hex digits, a hash of the source,
+    made "#"), or None where ``cuobjdump`` is missing."""
     from tpusplat_torch.ops import _build
 
     tool = shutil.which("cuobjdump") or str(pathlib.Path(_build.nvcc()).with_name("cuobjdump"))
@@ -73,8 +84,37 @@ def sass(lib: pathlib.Path):
         return None
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    return [re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).strip() for ln in text.splitlines()
-            if re.search(r"/\*[0-9a-f]{4,}\*/", ln)]
+    code, name = {}, ""
+    for ln in text.splitlines():
+        head = re.search(r"Function : (\S+)", ln)
+        if head:
+            name = re.sub(r"[0-9a-f]{8,}", "#", re.sub(r"^.*_GLOBAL__N_1", "", head.group(1)))
+        elif re.search(r"/\*[0-9a-f]{4,}\*/", ln):
+            # the column the encoding starts at depends on the library's
+            # longest instruction
+            code.setdefault(name, []).append(" ".join(re.sub(r"/\*[0-9a-f]{4,}\*/", "",
+                                                             ln).split()))
+    return {k: _relabel(v) for k, v in code.items()}
+
+
+def _relabel(lines):
+    """Branch labels (``.L_x_N``) are numbered across the whole library;
+    number them within the kernel, in order of first use."""
+    names = {}
+
+    def label(m):
+        return names.setdefault(m.group(0), f".L_{len(names)}")
+
+    return [re.sub(r"\.L_x_\d+", label, ln) for ln in lines]
+
+
+def first_difference(a, b):
+    """(index, a's line, b's line) of the first instruction where two
+    kernels' code differs."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i, x, y
+    return min(len(a), len(b)), None, None
 
 
 def build_versions(kernel: str, versions: dict[str, pathlib.Path]):
@@ -103,8 +143,12 @@ def build_versions(kernel: str, versions: dict[str, pathlib.Path]):
         cdll, entry = ctypes.CDLL(str(lib)), ENTRY[kernel]
         if not hasattr(cdll, entry):
             raise SystemExit(f"compare_kernels: {src} does not export {entry}")
+        shared = [] if code is None or tree_sass is None else sorted(set(code) & set(tree_sass))
         log(phase="build", version=name, ptxas=ptxas,
-            sass_equal_to_tree=None if code is None or tree_sass is None else code == tree_sass)
+            sass_equal_to_tree=None if code is None or tree_sass is None else code == tree_sass,
+            sass_equal_kernels=[k for k in shared if code[k] == tree_sass[k]],
+            sass_differing_kernels={k: first_difference(code[k], tree_sass[k])
+                                    for k in shared if code[k] != tree_sass[k]})
         fn = getattr(cdll, entry)
         fn.argtypes = SIGNATURES[entry]
         fn.restype = ctypes.c_int
@@ -252,6 +296,39 @@ def compare_emission(torch, dev, fns, versions):
     return dict(num_instances=int(want[2]), capacity=cap, turns=turns, profiler=outs)
 
 
+def compare_segment_reduce(torch, dev, fns, versions):
+    from tpusplat_torch.ops import _build, binning, rasterize, segment_reduce
+    from tpusplat_torch.ops.preprocess import preprocess
+
+    params, cams, cfg = cs.garden_inputs(torch, dev)
+    n = params.num_gaussians
+    binned = binning.bin_and_sort(preprocess(params, cams[0], cfg), cams[0].width,
+                                  cams[0].height, cfg)
+    del params
+    rows, gid_s, bounds = rasterize.sort_grad_rows(
+        cs.random_rows(torch, binned.gauss_id, n, seed=3), binned.gauss_id, n)
+    stream = _build.stream_ptr(dev)
+    # every version, the tree's too, timed through its bare C call
+    calls = {"tree": segment_reduce._kernel(), **fns}
+
+    def run(name):
+        out = torch.empty((segment_reduce.ROWS, n), device=dev)
+        _build.check(calls[name](rows.data_ptr(), rows.stride(0), bounds.data_ptr(),
+                                 bounds[1:].data_ptr(), 1, n, out.data_ptr(), stream),
+                     f"{name} segment reduce")
+        return out
+
+    want = run("tree")
+    cs.check_equal("tree segment reduce, wrapper", segment_reduce.segment_reduce(
+        rows, gid_s, bounds), want)
+    for name in fns:
+        cs.check_equal(f"{name} segment reduce", run(name), want)
+        log(phase="check", version=name, sums="bit-equal")
+    turns = in_turns(torch, versions, {k: {"segment_reduce": (lambda k=k: run(k))}
+                                       for k in ["tree", *fns]}, reps=20)
+    return dict(rows=gid_s.shape[0], gaussians=n, turns=turns)
+
+
 def device_ms_by_name(torch, fn, reps: int):
     """{kernel name: device ms a call} under ``torch.profiler`` over
     ``reps`` calls after a warm one; empty where it sees no device time."""
@@ -290,7 +367,7 @@ def main(argv) -> int:
     fns = build_versions(kernel, versions)
     versions = {k: v for k, v in versions.items() if k in fns}
     compare = dict(forward=compare_forward, backward=compare_backward,
-                   emission=compare_emission)[kernel]
+                   emission=compare_emission, segment_reduce=compare_segment_reduce)[kernel]
     with torch.no_grad():
         res = compare(torch, dev, fns, versions)
     log(phase="summary", kernel=kernel, nvidia_smi=smi, **res)

@@ -15,6 +15,13 @@ Each routes by device: a CPU tensor goes through its plain version
 (``index_add_``, rows whose id lies outside [0, n) dropped by a select), a
 CUDA tensor through the kernel (or the call raises). In every mode a row
 whose id lies outside [0, n) never contributes, even when it holds NaN.
+
+The dense mode is handed its runs (``bounds``); the other two find theirs
+in the sorted ids on the card, in one C call. :func:`target_runs` and
+:func:`multirange_runs` build the same runs with ``torch.searchsorted``:
+they state which rows each output sums, and ``_reduce_ranges`` over them
+(the dense kernel on explicit runs) is the reference that chip_smoke.py
+holds those two modes to, bit for bit.
 """
 
 from __future__ import annotations
@@ -32,10 +39,12 @@ MULTIRANGE_LAUNCHES = 0
 ROWS = 9  # gradient rows the kernel sums (uv.x, uv.y, conic a/b/c, opacity, r/g/b)
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
 def _kernel():
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return _build.function("segment_reduce", "tpusplat_segment_reduce",
-                           [p, ll, p, p, i, i, p, p])
+                           [_P, _LL, _P, _P, _I, _I, _P, _P])
 
 
 def segment_reduce_plain(rows: torch.Tensor, gid: torch.Tensor, bounds: torch.Tensor):
@@ -122,17 +131,30 @@ def segment_reduce_targets(rows: torch.Tensor, gid: torch.Tensor, targets: torch
     [K, M] (float32): column j is the sum of the rows whose id equals
     ``targets[j]`` ([M] int32), 0 for a target outside [0, n) (the sentinel
     n pads the owner blocks of the compact exchange). ``gid`` [R] int32
-    must be sorted ascending; the kernel sums the runs of
-    :func:`target_runs`."""
+    must be sorted ascending; the kernel finds and sums the runs of
+    :func:`target_runs` (fastest where the targets ascend between
+    sentinels, as the exchange's do)."""
     if rows.device.type == "cpu":
         return segment_reduce_targets_plain(rows, gid, targets, n)
-    global TARGETS_LAUNCHES
     _check_ids("segment_reduce_targets", rows, n, gid=gid, targets=targets)
     if gid.shape[0] != rows.shape[1]:
         raise ValueError(f"segment_reduce_targets: {rows.shape[1]} rows, {gid.shape[0]} ids")
-    out = _reduce_ranges(rows, *target_runs(gid, targets, n), 1, targets.shape[0])
-    TARGETS_LAUNCHES += 1
+    out = torch.empty((ROWS, targets.shape[0]), dtype=torch.float32, device=rows.device)
+    if targets.shape[0]:
+        launch_targets(rows, gid, targets, n, out)
     return out
+
+
+def launch_targets(rows, gid, targets, n: int, out):
+    """One C call of the streamed-target kernel into ``out`` [9, M] on
+    checked inputs, counted in ``TARGETS_LAUNCHES``."""
+    global TARGETS_LAUNCHES
+    err = _build.function("segment_reduce", "tpusplat_segment_reduce_targets",
+                          [_P, _LL, _P, _I, _P, _I, _I, _P, _P])(
+        rows.data_ptr(), rows.stride(0), gid.data_ptr(), gid.shape[0], targets.data_ptr(),
+        targets.shape[0], n, out.data_ptr(), _build.stream_ptr(rows.device))
+    _build.check(err, "segment reduce kernel, streamed-target mode")
+    TARGETS_LAUNCHES += 1
 
 
 def segment_reduce_multirange_plain(rows: torch.Tensor, ids: torch.Tensor, n: int):
@@ -148,9 +170,7 @@ def multirange_runs(ids: torch.Tensor, n: int, blocks: int):
     ``ids``, by left ``searchsorted`` at the id and at the id + 1, offset
     by the block's first row. The sentinel n and anything above it lie
     past every run."""
-    if blocks < 1 or ids.shape[0] % blocks:
-        raise ValueError(f"multirange_runs: {ids.shape[0]} ids do not split into "
-                         f"{blocks} blocks")
+    _check_blocks("multirange_runs", ids, blocks)
     length = ids.shape[0] // blocks
     q = torch.arange(n + 1, dtype=ids.dtype, device=ids.device).expand(blocks, n + 1)
     bounds = torch.searchsorted(ids.view(blocks, length), q.contiguous(), out_int32=True)
@@ -167,13 +187,26 @@ def segment_reduce_multirange(rows: torch.Tensor, ids: torch.Tensor, n: int, blo
     contribute nothing."""
     if rows.device.type == "cpu":
         return segment_reduce_multirange_plain(rows, ids, n)
-    global MULTIRANGE_LAUNCHES
     _check_ids("segment_reduce_multirange", rows, n, ids=ids)
     if ids.shape[0] != rows.shape[1]:
         raise ValueError(f"segment_reduce_multirange: {rows.shape[1]} rows, {ids.shape[0]} ids")
-    out = _reduce_ranges(rows, *multirange_runs(ids, n, blocks), blocks, n)
-    MULTIRANGE_LAUNCHES += 1
+    _check_blocks("segment_reduce_multirange", ids, blocks)
+    out = torch.empty((ROWS, n), dtype=torch.float32, device=rows.device)
+    if n:
+        launch_multirange(rows, ids, n, blocks, out)
     return out
+
+
+def launch_multirange(rows, ids, n: int, blocks: int, out):
+    """One C call of the multi-range kernel into ``out`` [9, n] on checked
+    inputs, counted in ``MULTIRANGE_LAUNCHES``."""
+    global MULTIRANGE_LAUNCHES
+    err = _build.function("segment_reduce", "tpusplat_segment_reduce_multirange",
+                          [_P, _LL, _P, _I, _I, _I, _P, _P])(
+        rows.data_ptr(), rows.stride(0), ids.data_ptr(), ids.shape[0] // blocks, blocks, n,
+        out.data_ptr(), _build.stream_ptr(rows.device))
+    _build.check(err, "segment reduce kernel, multi-range mode")
+    MULTIRANGE_LAUNCHES += 1
 
 
 def _check_ids(what, rows, n, **ids):
@@ -182,15 +215,22 @@ def _check_ids(what, rows, n, **ids):
         if t.device != rows.device or t.dtype != torch.int32 or t.dim() != 1 \
                 or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous int32 [*] on {rows.device}")
+        if t.shape[0] >= 2**31:
+            raise ValueError(f"{what}: the kernel takes < 2^31 {name}, got {t.shape[0]}")
     if not 0 <= n < 2**31 - 1:
         raise ValueError(f"{what}: n = {n} out of range")
+
+
+def _check_blocks(what, ids, blocks: int):
+    if blocks < 1 or ids.shape[0] % blocks:
+        raise ValueError(f"{what}: {ids.shape[0]} ids do not split into {blocks} blocks")
 
 
 def _reduce_ranges(rows, lo, hi, rps: int, m: int):
     """Launch the kernel: out[:, j] = sum over b < rps of rows[:, lo[b,
     j]:hi[b, j]] ([rps, m] int32 each, row offsets into ``rows``; each
-    [rps, m] block contiguous in memory). Counts no launch: the mode
-    wrappers do."""
+    [rps, m] block contiguous in memory): the dense kernel on explicit
+    runs. Counts no launch: the dense wrapper does."""
     out = torch.empty((ROWS, m), dtype=torch.float32, device=rows.device)
     if m == 0:
         return out
