@@ -47,7 +47,11 @@ Phases, one output line each; any failure exits non-zero:
      adversarial ids (a run of 1e5 rows, empty runs, NaN sentinels);
   8. trainer rehearsal: ``python -m tpusplat_torch.trainer --synthetic``
      for 30 steps at 128x128; the loss must fall;
-  9. data_training: the trainer's real-data path at the garden shapes. A
+  9. threefry: the densify draws (``prng``: jax.random's threefry stream
+     and normal) on the card against the CPU, bit for bit: the normal of
+     all 2**23 uniforms it can draw, and the bits and normals of the
+     trainer's first densify pair at [1.4M, 3]; the pair's milliseconds;
+ 10. data_training: the trainer's real-data path at the garden shapes. A
      COLMAP capture written to disk (16 orbit views of the garden scene at
      1920x1080 as PNGs, one PINHOLE camera, 100k SfM points drawn from its
      means and coloured from their SH DC) and read back with
@@ -57,14 +61,15 @@ Phases, one output line each; any failure exits non-zero:
      ..., "--watchdog-secs", "300", ...])`` with the launch counters reset
      just before and read just after (the loss falls, the held-out PSNR
      rises, two held-out views, overflow 0 in every logged line, each
-     kernel launched at least once a step); the checkpoint loaded onto the
+     kernel launched at least once a step, every densify round's split
+     noise drawn on the card at [1.4M, 3]); the checkpoint loaded onto the
      card equal to the final state, and one ``train_step`` from each
      bit-equal; the trained ``.ply`` read natively and with numpy, equal;
      a garden frame with ``debug_checks`` (every counter 0, image and T
      bit-equal to the frame without), ``render`` raising on a NaN mean,
      the clean frame bit-equal afterwards; ``render_batch`` of the orbit
      bit-equal to one ``render_stages`` a camera; the seconds of each part;
- 10. sharded_emulated: one strip of the tile-sharded path at the garden
+ 11. sharded_emulated: one strip of the tile-sharded path at the garden
      shapes (tile = 4, 17 tile rows a strip, strip_gauss_mult 2.0: strip
      compaction active, or the run fails) through
      ``exchange_render_emulated``, forward and backward, the launch counters
@@ -82,7 +87,7 @@ Phases, one output line each; any failure exits non-zero:
      ``index_add_``; the strip's split (binning, forward kernel, backward
      kernel, gid sort, bucket_targets, reduce, owner_local_ids, owner
      reduce);
- 11. sharded_two_process: two processes on the one card (gloo through host
+ 12. sharded_two_process: two processes on the one card (gloo through host
      memory: NCCL cannot run two ranks on one card), mesh 1x2, 100k
      Gaussians at 800x800, SH3: one ``sharded_train_step`` with the dense
      exchange, one with the compact one, and ``sharded_train_step_overlap``
@@ -92,7 +97,7 @@ Phases, one output line each; any failure exits non-zero:
      JAX package's bounds; Adam's moments, which hold the gradient's
      magnitude, within 1e-4 of their largest; compact against dense 3e-6
      and 1e-5), with zero overflow and compaction active;
- 12. session: the interactive loop (``run_interactive``) on a ``Session`` of
+ 13. session: the interactive loop (``run_interactive``) on a ``Session`` of
      the garden scene at 1920x1080, fov 60, from (0, 0.5, 9), keys w w d
      left up, profiled every second frame, the launch counters reset just
      before and read just after (emission and forward every frame): the
@@ -100,18 +105,18 @@ Phases, one output line each; any failure exits non-zero:
      frame after ``resize(1280, 720)`` bit-equal to ``render_auto`` at the
      same camera, the status and live stage lines in the overlay; the frame
      ms, the EMA and the stage ms;
- 13. dryrun: ``run_dryrun(4)``, four ranks on the one card over gloo (mesh
+ 14. dryrun: ``run_dryrun(4)``, four ranks on the one card over gloo (mesh
      2x2): the sharded render against the one-process render, the overlap
      step's loss against the monolithic one's, the compact exchange
      against the dense one; every rank launches every kernel;
- 14. profile_detail: the garden stage table and a ``torch.profiler``
+ 15. profile_detail: the garden stage table and a ``torch.profiler``
      window over three train steps (window ms, device-busy ms, idle share,
      launches a step, the ten kernels with the most device time), and the
      same steps unprofiled;
- 15. gpu_gate: the gate's five checks (CUDA against the plain path at
+ 16. gpu_gate: the gate's five checks (CUDA against the plain path at
      100k/800^2 and its production block, the strip path, the golden
      oracle at 6k/128^2, the compact exchange); fails unless all pass;
- 16. bench_tools: kernel_bench (twice: inputs built, then cached),
+ 17. bench_tools: kernel_bench (twice: inputs built, then cached),
      plumb_bench, micro, strip_bench 8, measure_strip_projection and
      scaling (two ranks on the card over gloo), each once at the garden
      shapes, its JSON and seconds logged.
@@ -120,7 +125,7 @@ line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --nccl
 
-runs only phase 11's steps with a card per rank over NCCL (the path of
+runs only phase 12's steps with a card per rank over NCCL (the path of
 ``trainer --mesh`` under torchrun), on the meshes 1x4 and 2x2 (one camera
 per data rank, against the one-process step on the same batch); it needs
 four cards.
@@ -1398,6 +1403,33 @@ def phase_trainer_rehearsal(torch, dev):
         final_eval=summary["evals"][-1], step=summary["step"])
 
 
+def phase_threefry(torch, dev, n=GARDEN["n"]):
+    """The densify draws (``prng``, jax.random's threefry stream and normal)
+    on the card against the CPU, bit for bit: the normal of every one of the
+    2**23 uniforms it can draw, and the pair of [n, 3] draws of the trainer's
+    first densify round at the garden capacity (keys ``split(key(0))[1]``
+    and its ``fold_in(., 1)``); the pair's milliseconds on the card."""
+    from tpusplat_torch.train import prng
+
+    t0 = time.perf_counter()
+    every = torch.arange(1 << 23, dtype=torch.int64) << 9
+    check_equal("threefry: the normal of every uniform", prng.normal_from_bits(every.to(dev)),
+                prng.normal_from_bits(every))
+    sub = prng.split(prng.key(0))[1]
+    keys = (sub, prng.fold_in(sub, 1))
+    for i, k in enumerate(keys):
+        check_equal(f"threefry: garden bits {i}", prng.random_bits(k, (n, 3), dev),
+                    prng.random_bits(k, (n, 3), "cpu"))
+        got, want = prng.normal(k, (n, 3), dev), prng.normal(k, (n, 3), "cpu")
+        check_equal(f"threefry: garden draw {i}", got, want)
+        if not bool(want.isfinite().all()) or not 0.9 < float(want.std()) < 1.1:
+            fail(f"threefry: draw {i} is not a standard normal (std {float(want.std())})")
+    pair_ms = cuda_ms(torch, lambda: [prng.normal(k, (n, 3), dev) for k in keys], reps=5) \
+        if dev.type == "cuda" else None
+    log(phase="threefry", seconds=time.perf_counter() - t0, uniforms=1 << 23,
+        garden_shape=[n, 3], bit_equal=True, pair_ms=pair_ms)
+
+
 # The data_training phase: a COLMAP capture of the garden scene written to
 # disk (16 orbit views at 1080p, 100k SfM points from its means), then
 # ``trainer --data`` on it at the garden capacity with every eighth view
@@ -1485,6 +1517,7 @@ def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DAT
     from tpusplat_torch.io.ply import load_ply
     from tpusplat_torch.ops import emission, rasterize, segment_reduce
     from tpusplat_torch.render import render, render_auto, render_batch, render_stages
+    from tpusplat_torch.train import prng
     from tpusplat_torch.train import step as tstep
     from tpusplat_torch.train.checkpoint import load_checkpoint, save_checkpoint, state_tensors
 
@@ -1546,17 +1579,32 @@ def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DAT
     del init, renders
 
     # 3. The trainer on the capture, the launch counters reset just before
-    # and read just after.
+    # and read just after, and its densify draws (prng.normal) recorded.
     ply, ckpt = out_dir / "trained.ply", out_dir / "state.npz"
     sync()
     emission.LAUNCHES = rasterize.FORWARD_LAUNCHES = rasterize.BACKWARD_LAUNCHES = 0
     segment_reduce.LAUNCHES = 0
+    draws, prng_normal = [], prng.normal
+
+    def recorded_normal(k, shape, device):
+        out = prng_normal(k, shape, device)
+        draws.append((tuple(out.shape), out.device.type))
+        return out
+
     err = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err):
-        summary = trainer.main(["--data", str(root), *argv, "--ckpt", str(ckpt),
-                                "--out", str(ply), "--device", dev.type])
+    prng.normal = recorded_normal
+    try:
+        with contextlib.redirect_stderr(err):
+            summary = trainer.main(["--data", str(root), *argv, "--ckpt", str(ckpt),
+                                    "--out", str(ply), "--device", dev.type])
+    finally:
+        prng.normal = prng_normal
     seconds["trainer"] = time.perf_counter() - t0
+    capacity = int(argv[argv.index("--capacity") + 1])
+    if not draws or len(draws) % 2 or set(draws) != {((capacity, 3), dev.type)}:
+        fail(f"data_training: the densify rounds did not draw their [{capacity}, 3] split "
+             f"noise pairs on {dev.type}: {draws}")
     launches = dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES,
                     backward_blend=rasterize.BACKWARD_LAUNCHES,
                     segment_reduce=segment_reduce.LAUNCHES)
@@ -1657,6 +1705,7 @@ def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DAT
         held_out=evals[0]["views"], points=capture["points"], steps=steps, losses=losses,
         evals=[{k: e[k] for k in ("eval_step", "psnr", "ssim", "views", "overflow")}
                for e in evals], ply_gaussians=n_ply, launches=launches,
+        densify_draws=len(draws), alive=[ln["alive"] for ln in lines if "alive" in ln],
         nan_mean=raised, seconds=seconds)
     return launches
 
@@ -1914,6 +1963,7 @@ def run(torch, dev, kind: str, smi: str) -> int:
     cfg, training = phase_garden_training(torch, dev, params, cams, cfg)
     timed = phase_kernels(torch, dev, params, cams[0], cfg)
     phase_trainer_rehearsal(torch, dev)
+    phase_threefry(torch, dev)
     data = phase_data_training(torch, dev, params, cams, cfg)
     timed.update(phase_sharded_emulated(torch, dev, params, cams[0], cfg))
     session = phase_session(torch, dev, params, cfg)

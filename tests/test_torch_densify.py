@@ -1,7 +1,8 @@
 """The port's densification (tpusplat_torch/train/densify.py) on the CPU:
-densify_and_prune fed the JAX package's own split draws against the JAX
-densify_and_prune on the same state, and the five behavioural tests of
-tests/test_densify.py."""
+densify_and_prune against the JAX densify_and_prune on the same state, fed
+the JAX package's own split draws and, with no draws given, drawing them
+itself from the same key (tpusplat_torch/train/prng.py); and the five
+behavioural tests of tests/test_densify.py."""
 
 import dataclasses
 
@@ -17,6 +18,7 @@ from tpusplat.types import to_numpy
 from tpusplat_torch import convert
 from tpusplat_torch.io.synthetic import random_scene
 from tpusplat_torch.train import densify as td
+from tpusplat_torch.train import prng
 from tpusplat_torch.train import step as tstep
 
 torch.set_num_threads(2)
@@ -32,14 +34,10 @@ def _state_with(n=64, n_alive=32):
     return tstep.create_train_state(params)
 
 
-def _gen(seed=0):
-    return torch.Generator().manual_seed(seed)
-
-
-def test_densify_matches_jax_with_its_draws():
-    """Clones, splits (2 of 3 with large scales), pruning by opacity and by
-    world size, grants limited by free slots, and zeroed moments."""
-    n, n_alive = 96, 70
+def _states(n=96, n_alive=70):
+    """The same densify input for both packages: a JAX TrainState and the
+    port's, with clone and split candidates, Gaussians to prune by opacity
+    and by world size, and random Adam moments."""
     rng = np.random.default_rng(5)
     params = jax_random_scene(n, seed=4, sh_degree=1, scale_range=(0.005, 0.05))
     op = np.asarray(params.opacities).copy()
@@ -68,11 +66,6 @@ def test_densify_matches_jax_with_its_draws():
     js = dataclasses.replace(js, opt_state=js.opt_state._replace(inner_states=inner),
                              grad_accum=jnp.asarray(ga), grad_count=jnp.asarray(gc),
                              max_radii=jnp.asarray(mr))
-    dcfg_j = jd.DensifyConfig(grad_threshold=1e-4, percent_dense=0.003, max_screen_radius=4.0)
-    key = jax.random.key(7)
-    out_j = jd.densify_and_prune(js, key, dcfg_j, scene_extent=2.0)
-    noise = np.array(jax.random.normal(key, (n, 3)))
-    noise2 = np.array(jax.random.normal(jax.random.fold_in(key, 1), (n, 3)))
 
     p = to_numpy(params)
     tp = convert.params_from_numpy(p.means, p.log_scales, p.quats, p.opacities, p.sh, p.alive,
@@ -81,17 +74,20 @@ def test_densify_matches_jax_with_its_draws():
     ts.mu = {f: torch.from_numpy(moments[f]) for f in FIELDS}
     ts.nu = {f: torch.from_numpy(moments[f] ** 2) for f in FIELDS}
     ts.grad_accum, ts.grad_count, ts.max_radii = (torch.from_numpy(a) for a in (ga, gc, mr))
-    dcfg_t = td.DensifyConfig(**dataclasses.asdict(dcfg_j))
-    out_t = td.densify_and_prune(ts, None, dcfg_t, 2.0, noise=torch.from_numpy(noise),
-                                 noise2=torch.from_numpy(noise2))
+    return js, ts
 
+
+DCFG = dict(grad_threshold=1e-4, percent_dense=0.003, max_screen_radius=4.0)
+
+
+def _check_against_jax(out_t, out_j, n_alive=70, means_atol=1e-6):
     alive_j = np.asarray(out_j.params.alive)
     np.testing.assert_array_equal(out_t.params.alive.numpy(), alive_j)
     assert alive_j.sum() > n_alive - 4 and not alive_j[[3, 4, 5, 7]].any()
     for f in FIELDS:
         np.testing.assert_allclose(getattr(out_t.params, f).numpy(),
-                                   np.asarray(getattr(out_j.params, f)), atol=1e-6,
-                                   err_msg=f)
+                                   np.asarray(getattr(out_j.params, f)),
+                                   atol=means_atol if f == "means" else 1e-6, err_msg=f)
         adam = out_j.opt_state.inner_states[f].inner_state[0]
         np.testing.assert_array_equal(out_t.mu[f].numpy(), np.asarray(adam.mu[f]), err_msg=f)
         np.testing.assert_array_equal(out_t.nu[f].numpy(), np.asarray(adam.nu[f]), err_msg=f)
@@ -100,13 +96,40 @@ def test_densify_matches_jax_with_its_draws():
     assert int(out_t.step) == int(out_j.step)
 
 
+def test_densify_matches_jax_with_its_draws():
+    """Clones, splits (2 of 3 with large scales), pruning by opacity and by
+    world size, grants limited by free slots, and zeroed moments."""
+    n = 96
+    js, ts = _states(n)
+    key = jax.random.key(7)
+    out_j = jd.densify_and_prune(js, key, jd.DensifyConfig(**DCFG), scene_extent=2.0)
+    noise = np.array(jax.random.normal(key, (n, 3)))
+    noise2 = np.array(jax.random.normal(jax.random.fold_in(key, 1), (n, 3)))
+    out_t = td.densify_and_prune(ts, prng.key(7), td.DensifyConfig(**DCFG), 2.0,
+                                 noise=torch.from_numpy(noise), noise2=torch.from_numpy(noise2))
+    _check_against_jax(out_t, out_j)
+
+
+def test_densify_draws_as_jax_from_the_same_key():
+    """No draws handed in: the port draws its split noise from the key that
+    the JAX densify gets (the second key of apps/train.py's first split),
+    and lands every split child where JAX does (means within 1e-5)."""
+    js, ts = _states()
+    out_j = jd.densify_and_prune(js, jax.random.split(jax.random.key(0))[1],
+                                 jd.DensifyConfig(**DCFG), scene_extent=2.0)
+    out_t = td.densify_and_prune(ts, prng.split(prng.key(0))[1], td.DensifyConfig(**DCFG), 2.0)
+    moved = np.abs(out_t.params.means.numpy() - ts.params.means.numpy()).max(axis=1) > 1e-4
+    assert moved[:70].sum() >= 2, "no split source moved"
+    _check_against_jax(out_t, out_j, means_atol=1e-5)
+
+
 def test_clone_into_free_slots():
     state = _state_with()
     ga = torch.zeros(64)
     ga[:4] = 1.0
     state = dataclasses.replace(state, grad_accum=ga, grad_count=torch.ones(64))
     dcfg = td.DensifyConfig(grad_threshold=0.5, percent_dense=10.0, max_world_scale=0.0)
-    out = td.densify_and_prune(state, _gen(), dcfg, scene_extent=1.0)
+    out = td.densify_and_prune(state, prng.key(0), dcfg, scene_extent=1.0)
     alive = out.params.alive.numpy()
     assert alive.sum() == 36  # 32 alive + 4 clones
     new_slots = np.where(alive[32:])[0] + 32
@@ -122,7 +145,7 @@ def test_split_shrinks_and_moves():
     ga[:2] = 1.0
     state = dataclasses.replace(state, grad_accum=ga, grad_count=torch.ones(64))
     dcfg = td.DensifyConfig(grad_threshold=0.5, percent_dense=1e-6, max_world_scale=0.0)
-    out = td.densify_and_prune(state, _gen(1), dcfg, scene_extent=1.0)
+    out = td.densify_and_prune(state, prng.key(1), dcfg, scene_extent=1.0)
     np.testing.assert_allclose(out.params.log_scales.numpy()[:2],
                                state.params.log_scales.numpy()[:2] - np.log(1.6), rtol=1e-6)
     assert np.abs(out.params.means.numpy()[:2] - state.params.means.numpy()[:2]).max() > 1e-5
@@ -134,7 +157,7 @@ def test_prune_low_opacity():
     op = state.params.opacities.clone()
     op[:5] = -10.0  # sigmoid ~ 4.5e-5 < min_opacity
     state = dataclasses.replace(state, params=dataclasses.replace(state.params, opacities=op))
-    out = td.densify_and_prune(state, _gen(), td.DensifyConfig(max_world_scale=0.0), 1.0)
+    out = td.densify_and_prune(state, prng.key(0), td.DensifyConfig(max_world_scale=0.0), 1.0)
     alive = out.params.alive.numpy()
     assert not alive[:5].any()
     assert alive[5:32].all()
@@ -144,7 +167,7 @@ def test_grant_limited_by_free_slots():
     state = _state_with(n=64, n_alive=62)  # only 2 free slots
     state = dataclasses.replace(state, grad_accum=torch.ones(64), grad_count=torch.ones(64))
     dcfg = td.DensifyConfig(grad_threshold=0.5, percent_dense=10.0, max_world_scale=0.0)
-    out = td.densify_and_prune(state, _gen(), dcfg, 1.0)
+    out = td.densify_and_prune(state, prng.key(0), dcfg, 1.0)
     assert out.params.alive.sum() == 64  # all slots filled, no more
 
 

@@ -4,6 +4,9 @@ tests/test_train_e2e.py), on the CPU:
   * one NeRF-synthetic capture through ``apps/train.py --xla`` and
     ``tpusplat_torch.trainer --device cpu``: the step-0 held-out eval and
     the first two losses agree;
+  * a whole synthetic run through both, three densify rounds (clones and
+    splits, their noise drawn from the same threefry keys) and an opacity
+    reset: every log line and the two output PLYs agree;
   * the NeRF-synthetic dress rehearsal with the reference's own assertions,
     plus ``--ckpt`` (the checkpoint holds the final state) and
     ``--watchdog-secs``;
@@ -21,7 +24,9 @@ import torch
 from tests.test_train_e2e import _write_colmap_dataset, _write_dataset
 from tpusplat_torch import trainer
 from tpusplat_torch.io.ply import load_ply
+from tpusplat_torch.train import densify
 from tpusplat_torch.train.checkpoint import load_checkpoint, state_tensors
+from tpusplat_torch.train.step import make_optimizer
 
 torch.set_num_threads(2)
 
@@ -62,6 +67,57 @@ def test_step0_eval_and_losses_match_jax(tmp_path, capsys, monkeypatch):
     got = dict(summary["losses"])
     for step in (1, 2):
         np.testing.assert_allclose(got[step], w_loss[step], rtol=1e-4, err_msg=f"step {step}")
+
+
+def test_whole_run_through_densify_matches_jax(tmp_path, capsys, monkeypatch):
+    """14 synthetic steps with a densify round every 4 steps up to step 12
+    and an opacity reset at step 8. Round 1 splits (no initial Gaussian is
+    small enough to clone: its scales start in [0.05, 0.25], the clone limit
+    is 0.01 * the extent 6), round 2 clones and splits, round 3, after the
+    reset, finds no candidate but still takes its key. Every log line: alive
+    equal, loss at rtol 1e-4; the PLYs: the same Gaussians, parameters at 2
+    lr steps a step."""
+    steps = 14
+    args = ["--synthetic", "--steps", str(steps), "--width", "64", "--height", "48",
+            "--n-init", "200", "--capacity", "2400", "--sh-degree", "1", "--cameras", "4",
+            "--densify-every", "4", "--densify-until", "12", "--opacity-reset-every", "8",
+            "--log-every", "1"]
+    want = _jax_lines([*args, "--xla", "--out", str(tmp_path / "j.ply")], monkeypatch)
+
+    rounds = []
+    port_densify = densify.densify_and_prune
+
+    def counted(state, *a, **kw):
+        out = port_densify(state, *a, **kw)
+        before = state.params.alive
+        split = int((before & (out.params.log_scales != state.params.log_scales).any(-1)).sum())
+        new = int((out.params.alive & ~before).sum())
+        rounds.append(dict(split=split, clone=new - split))
+        return out
+
+    monkeypatch.setattr(densify, "densify_and_prune", counted)
+    summary, lines = _port([*args, "--out", str(tmp_path / "t.ply")], capsys)
+    assert len(rounds) == 3 and all(r["split"] for r in rounds[:2]) and rounds[1]["clone"], rounds
+
+    w_lines = [ln for ln in want if "loss" in ln]
+    got = [ln for ln in lines if "loss" in ln]
+    assert [ln["step"] for ln in got] == [ln["step"] for ln in w_lines]
+    alive = ([ln["alive"] for ln in got], [ln["alive"] for ln in w_lines])
+    np.testing.assert_allclose([v for _, v in summary["losses"]],
+                               [ln["loss"] for ln in w_lines], rtol=1e-4,
+                               err_msg=f"alive (port, JAX): {alive}")
+    assert alive[0] == alive[1]
+    assert alive[1][-1] > 3 * alive[1][0]
+
+    pj = load_ply(tmp_path / "j.ply", device="cpu", use_native=False)
+    pt = load_ply(tmp_path / "t.ply", device="cpu", use_native=False)
+    assert pt.num_gaussians == pj.num_gaussians == w_lines[-1]["alive"]
+    opt = make_optimizer(scene_extent=6.0)
+    lrs = dict(means=opt.means_lr * opt.scene_extent, log_scales=opt.scales_lr,
+               quats=opt.quats_lr, opacities=opt.opacities_lr, sh=opt.sh_lr)
+    for f, lr in lrs.items():
+        np.testing.assert_allclose(getattr(pt, f).numpy(), getattr(pj, f).numpy(),
+                                   atol=2 * lr * steps, err_msg=f)
 
 
 def test_dataset_dress_rehearsal(tmp_path, capsys):

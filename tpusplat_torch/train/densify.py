@@ -14,8 +14,10 @@ Recipe (upstream 3DGS semantics, as in the JAX package):
     replaces the source slot, one takes a free slot;
   * prune: opacity below min_opacity (plus the optional size caps).
 
-The split noise comes from a ``torch.Generator``; ``noise``/``noise2``
-may be passed instead (the tests hand in the JAX package's draws).
+The split noise is drawn from a key of ``jax.random``'s threefry stream
+(``tpusplat_torch.train.prng``), as the JAX package draws it, so the same
+key gives the same split positions; ``noise``/``noise2`` may be passed
+instead.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import math
 import torch
 
 from tpusplat_torch.ops.activations import normalize_quat
+from tpusplat_torch.train import prng
 from tpusplat_torch.train.step import TrainState
 from tpusplat_torch.types import GaussianParams
 
@@ -68,14 +71,16 @@ def _scatter(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.T
 @torch.no_grad()
 def densify_and_prune(
     state: TrainState,
-    generator: torch.Generator | None,
+    key: prng.Key,
     dcfg: DensifyConfig,
     scene_extent: float,
     noise: torch.Tensor | None = None,
     noise2: torch.Tensor | None = None,
 ) -> TrainState:
     """One densification round. ``noise``/``noise2`` ([N, 3]) are the two
-    standard-normal split draws; drawn from ``generator`` when not given."""
+    standard-normal split draws; when not given, they are
+    ``jax.random.normal`` of ``key`` and of ``fold_in(key, 1)``, on the
+    state's device."""
     params = state.params
     n = params.num_gaussians
     dev = params.device
@@ -107,9 +112,9 @@ def densify_and_prune(
     # Gaussian and shrinks it.
     dt = params.means.dtype
     if noise is None:
-        noise = torch.randn((n, 3), generator=generator, dtype=dt, device=dev)
+        noise = prng.normal(key, (n, 3), dev).to(dt)
     if noise2 is None:
-        noise2 = torch.randn((n, 3), generator=generator, dtype=dt, device=dev)
+        noise2 = prng.normal(prng.fold_in(key, 1), (n, 3), dev).to(dt)
     sample1 = params.means + _rot_apply(params.quats, noise * scales)
     sample2 = params.means + _rot_apply(params.quats, noise2 * scales)
     split_log_scales = params.log_scales - torch.log(

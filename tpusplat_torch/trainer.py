@@ -127,7 +127,6 @@ def main(argv=None) -> dict:
 
 
 def _train(args, dev, mesh) -> dict:
-    import numpy as np
     import torch
 
     from tpusplat_torch.config import RenderConfig, regrow
@@ -136,6 +135,7 @@ def _train(args, dev, mesh) -> dict:
     from tpusplat_torch.parallel import sharded
     from tpusplat_torch.parallel.collectives import all_reduce_
     from tpusplat_torch.render import render_auto
+    from tpusplat_torch.train import prng
     from tpusplat_torch.train.checkpoint import save_checkpoint
     from tpusplat_torch.train.densify import DensifyConfig, densify_and_prune, reset_opacity
     from tpusplat_torch.train.losses import psnr, ssim
@@ -198,15 +198,15 @@ def _train(args, dev, mesh) -> dict:
              backend=torch.distributed.get_backend())
     dcfg = DensifyConfig()
     densify_until = args.densify_until or args.steps // 2
-    # The split draws come from numpy on the host, so that a run on the
-    # card and one on the CPU densify alike, as every rank does.
-    rng = np.random.default_rng(0)
+    # The split draws follow apps/train.py's key chain: one split a round,
+    # also where a round only prunes (the sharded steps leave the densify
+    # statistics empty). The card, the CPU and every rank draw alike.
+    key = prng.key(0)
 
     def densify(st):
-        draws = [torch.from_numpy(rng.standard_normal((st.params.num_gaussians, 3),
-                                                      dtype=np.float32)).to(dev)
-                 for _ in range(2)]
-        return densify_and_prune(st, None, dcfg, scene_extent, *draws)
+        nonlocal key
+        key, sub = prng.split(key)
+        return densify_and_prune(st, sub, dcfg, scene_extent)
 
     # Exact capacity recovery: train_step gates its update on the device, so
     # an overflowed step leaves the state as it was. The host reads the
