@@ -62,13 +62,22 @@ Phases, one output line each; any failure exits non-zero:
      just before and read just after (the loss falls, the held-out PSNR
      rises, two held-out views, overflow 0 in every logged line, each
      kernel launched at least once a step, every densify round's split
-     noise drawn on the card at [1.4M, 3]); the checkpoint loaded onto the
-     card equal to the final state, and one ``train_step`` from each
-     bit-equal; the trained ``.ply`` read natively and with numpy, equal;
+     noise drawn on the card at [1.4M, 3]); the checkpoint in the JAX
+     package's layout (exactly ``leaf_0`` ... ``leaf_25`` and
+     ``__treedef__``, the treedef the port's constant, every leaf JAX's
+     shape and dtype at 1.4M slots and SH3), loaded onto the card equal to
+     the final state, and one ``train_step`` from each bit-equal; the
+     trained ``.ply`` read natively and with numpy, equal;
      a garden frame with ``debug_checks`` (every counter 0, image and T
      bit-equal to the frame without), ``render`` raising on a NaN mean,
      the clean frame bit-equal afterwards; ``render_batch`` of the orbit
-     bit-equal to one ``render_stages`` a camera; the seconds of each part;
+     bit-equal to one ``render_stages`` a camera; a densify round that
+     grants slots at 1.4M (``densify_round``: 1.0M alive, more candidates
+     than free slots, clones, splits and prunes) on the card against the
+     same round on the CPU given the card's draws (alive and the granted
+     slots bit-equal, the rest within 2e-6, a differing clone-or-split
+     decision only within 4 ulp of its limit), its ms; the seconds of each
+     part (the checkpoint's save and load among them);
  11. sharded_emulated: one strip of the tile-sharded path at the garden
      shapes (tile = 4, 17 tile rows a strip, strip_gauss_mult 2.0: strip
      compaction active, or the run fails) through
@@ -1496,6 +1505,145 @@ def write_colmap_capture(root, cams, images, xyz, rgb):
         f.write(struct.pack("<Q", len(xyz)) + rec.tobytes())
 
 
+def jax_leaf_specs(n, sh_coeffs):
+    """(shape, dtype) of each leaf of the JAX package's ``TrainState`` at
+    ``n`` slots, in ``jax.tree_util.tree_flatten`` order: the six parameter
+    fields, then per optimizer group in sorted order Adam's count, mu and
+    nu (the means' followed by their schedule's count), then step and the
+    three densify statistics."""
+    rows = dict(means=(n, 3), log_scales=(n, 3), quats=(n, 4), opacities=(n,),
+                sh=(n, sh_coeffs, 3))
+    specs = [(rows[f], "float32") for f in ("means", "log_scales", "quats", "opacities", "sh")]
+    specs.append(((n,), "bool"))
+    for group in sorted(rows):
+        specs += [((), "int32"), (rows[group], "float32"), (rows[group], "float32")]
+        if group == "means":
+            specs.append(((), "int32"))
+    return specs + [((), "int32")] + [((n,), "float32")] * 3
+
+
+# The densify round at the garden capacity: alive slots drawn from a seed,
+# average gradients uniform in [0, 2 x grad_threshold) (so half the alive
+# slots are candidates, more than the free slots), a share of the alive
+# slots nearly transparent (opacity in [0.001, 0.004], under min_opacity
+# 0.005), and scene_extent 1.0, so that the clone/split limit of 0.01
+# falls inside the garden scales (0.002-0.02).
+DENSIFY_ROUND = dict(alive=1_000_000, seed=11, faint=0.02, scene_extent=1.0)
+
+
+def densify_round(torch, dev, params, spec=DENSIFY_ROUND):
+    """One ``densify_and_prune`` on the card at the garden capacity that
+    grants slots, against the same round on a CPU copy of the state, given
+    the card's draws: alive and the granted target slots bit-equal (and
+    equal to the ranking's contract: the j-th candidate by average gradient
+    takes the j-th free slot); the parameters and moments within 2e-6,
+    apart from Gaussians whose clone-or-split decision differs, which must
+    lie within 4 ulp of the limit. Returns the round's ms on the card (CUDA
+    events, draws included and given), the counts of clones, splits and
+    prunes, and the decisions that differ."""
+    import numpy as np
+
+    from tpusplat_torch.train import prng
+    from tpusplat_torch.train import step as tstep
+    from tpusplat_torch.train.checkpoint import state_tensors
+    from tpusplat_torch.train.densify import DensifyConfig, densify_and_prune
+
+    n, extent, dcfg = params.num_gaussians, spec["scene_extent"], DensifyConfig()
+    g = torch.Generator().manual_seed(spec["seed"])
+    alive = torch.zeros(n, dtype=torch.bool)
+    alive[torch.randperm(n, generator=g)[:spec["alive"]]] = True
+    faint = torch.rand(n, generator=g) < spec["faint"]
+    op = 0.001 + 0.003 * torch.rand(n, generator=g)
+    host = _to(params, "cpu")
+    host = dataclasses.replace(host, alive=alive, opacities=torch.where(
+        faint, torch.log(op / (1 - op)), host.opacities))
+    state = tstep.create_train_state(host)
+    state.mu = {k: 1e-3 * torch.randn(v.shape, generator=g) for k, v in state.mu.items()}
+    state.nu = {k: 1e-6 * torch.rand(v.shape, generator=g) for k, v in state.nu.items()}
+    state.count = {k: torch.tensor(500, dtype=torch.int32) for k in state.count}
+    state.step = torch.tensor(500, dtype=torch.int32)
+    state.grad_count = torch.randint(1, 20, (n,), generator=g).float()
+    state.grad_accum = torch.rand(n, generator=g) * (2 * dcfg.grad_threshold) * state.grad_count
+    state.max_radii = 30 * torch.rand(n, generator=g)
+    card = _to(state, dev)
+
+    key = prng.fold_in(prng.key(0), 7)
+    noise = prng.normal(key, (n, 3), dev)
+    noise2 = prng.normal(prng.fold_in(key, 1), (n, 3), dev)
+    got = densify_and_prune(card, key, dcfg, extent)
+    want = densify_and_prune(state, key, dcfg, extent, noise=noise.cpu(), noise2=noise2.cpu())
+    ms = ms_given = None
+    if dev.type == "cuda":
+        ms = cuda_ms(torch, lambda: densify_and_prune(card, key, dcfg, extent), reps=3)
+        ms_given = cuda_ms(torch, lambda: densify_and_prune(
+            card, key, dcfg, extent, noise=noise, noise2=noise2), reps=3)
+
+    # The ranking's contract: candidates by average gradient, best first
+    # (ties by slot), take the free slots in ascending order.
+    avg = state.grad_accum / state.grad_count.clamp_min(1.0)
+    cand = alive & (avg >= dcfg.grad_threshold)
+    free = torch.nonzero(~alive).flatten()
+    best = torch.argsort(torch.where(cand, -avg, math.inf), stable=True)
+    granted = best[:min(int(cand.sum()), len(free))]
+    target = torch.full((n,), -1, dtype=torch.int64)
+    target[granted] = free[:len(granted)]
+    if not len(granted) < int(cand.sum()):
+        fail(f"densify_round: {int(cand.sum())} candidates do not outnumber {len(free)} free "
+             "slots")
+
+    def outcome(out):
+        """(alive, the free slots filled, the Gaussians that split)."""
+        means, log_scales = out.params.means.cpu(), out.params.log_scales.cpu()
+        filled = ~alive & (means != state.params.means).any(-1)
+        split = alive & (log_scales != state.params.log_scales).any(-1)
+        return out.params.alive.cpu(), filled, split
+
+    alive_g, filled_g, split_g = outcome(got)
+    alive_w, filled_w, split_w = outcome(want)
+    check_equal("densify_round: alive", alive_g, alive_w)
+    check_equal("densify_round: granted target slots", filled_g, filled_w)
+    filled = torch.zeros(n, dtype=torch.bool)
+    filled[free[:len(granted)]] = True
+    check_equal("densify_round: target slots against the ranking", filled_w, filled)
+    if bool(((split_g | split_w) & (target < 0)).any()):
+        fail("densify_round: a Gaussian without a slot split")
+
+    # Decisions that differ must sit within 4 ulp of the clone/split limit.
+    differ = torch.nonzero(split_g != split_w).flatten()
+    limit = np.float32(dcfg.percent_dense * extent)
+    max_scale = torch.exp(state.params.log_scales[differ]).max(-1).values.numpy()
+    if np.any(np.abs(max_scale - limit) > 4 * np.spacing(limit)):
+        fail(f"densify_round: {len(differ)} split decisions differ, not all within 4 ulp of "
+             f"{limit}: largest scales {max_scale.tolist()[:8]}")
+    keep = torch.ones(n, dtype=torch.bool)
+    keep[differ] = False
+    keep[target[differ]] = False
+    errs = {}
+    for k, v in state_tensors(want).items():
+        a = state_tensors(got)[k].cpu()
+        if v.dim() == 0:
+            check_equal(f"densify_round: {k}", a, v)
+            continue
+        errs[k] = check_close(f"densify_round: {k}", a[keep].float(), v[keep].float(),
+                              atol=2e-6)
+    clones = int((target >= 0).sum()) - int(split_w.sum())
+    return dict(slots=n, alive_before=int(alive.sum()), candidates=int(cand.sum()),
+                free=len(free), granted=len(granted), clones=clones, splits=int(split_w.sum()),
+                prunes=int(((alive | filled) & ~alive_w).sum()), alive_after=int(alive_w.sum()),
+                decisions_differ=len(differ), max_abs_err=max(errs.values()), ms=ms,
+                ms_noise_given=ms_given)
+
+
+def _to(x, dev):
+    """A tensor, or a dict or dataclass of them (nested), copied to ``dev``."""
+    if isinstance(x, dict):
+        return {k: v.to(dev) for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        return x.__class__(**{f.name: _to(getattr(x, f.name), dev)
+                              for f in dataclasses.fields(x)})
+    return x.to(dev)
+
+
 def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DATA_TRAINING):
     """The trainer's real-data path at the garden shapes: a COLMAP capture
     written to disk and read back, ``trainer --data`` with a held-out eval,
@@ -1519,7 +1667,8 @@ def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DAT
     from tpusplat_torch.render import render, render_auto, render_batch, render_stages
     from tpusplat_torch.train import prng
     from tpusplat_torch.train import step as tstep
-    from tpusplat_torch.train.checkpoint import load_checkpoint, save_checkpoint, state_tensors
+    from tpusplat_torch.train.checkpoint import (JAX_TREEDEF, load_checkpoint, save_checkpoint,
+                                                 state_tensors)
 
     def sync():
         if dev.type == "cuda":
@@ -1628,9 +1777,23 @@ def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DAT
         fail(f"data_training: a kernel launched fewer times than the {steps} steps: "
              f"{launches}")
 
-    # 4. The checkpoint against the trainer's final state, and one step
-    # from each, bit for bit.
+    # 4. The checkpoint: the JAX package's layout at this capacity; against
+    # the trainer's final state, and one step from each, bit for bit.
     state = summary["state"]
+    specs = jax_leaf_specs(capacity, state.params.sh.shape[1])
+    with np.load(ckpt) as data:
+        want_files = {"__treedef__", *(f"leaf_{i}" for i in range(len(specs)))}
+        if set(data.files) != want_files:
+            fail(f"data_training: the checkpoint's files {sorted(data.files)} are not the "
+                 f"JAX layout's {sorted(want_files)}")
+        if data["__treedef__"].dtype != np.uint8 or \
+                data["__treedef__"].tobytes() != JAX_TREEDEF.encode():
+            fail("data_training: the checkpoint's __treedef__ is not the JAX train state's")
+        for i, (shape, dtype) in enumerate(specs):
+            a = data[f"leaf_{i}"]
+            if a.shape != shape or str(a.dtype) != dtype:
+                fail(f"data_training: checkpoint leaf_{i} is {a.dtype} {a.shape}, JAX's "
+                     f"{dtype} {shape}")
     restored, seconds["checkpoint_load"] = timed(lambda: load_checkpoint(ckpt, state))
     for k, v in state_tensors(state).items():
         r = state_tensors(restored)[k]
@@ -1701,12 +1864,17 @@ def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DAT
                 fail(f"data_training: render_batch camera {i} differs")
     seconds["validation_and_batch"] = time.perf_counter() - t0
     shutil.rmtree(out_dir, ignore_errors=True)
+
+    # 8. A densify round that grants slots at the garden capacity.
+    t0 = time.perf_counter()
+    round_ = densify_round(torch, dev, params)
+    seconds["densify_round"] = time.perf_counter() - t0
     log(phase="data_training", width=w, height=h, views=capture["views"],
         held_out=evals[0]["views"], points=capture["points"], steps=steps, losses=losses,
         evals=[{k: e[k] for k in ("eval_step", "psnr", "ssim", "views", "overflow")}
                for e in evals], ply_gaussians=n_ply, launches=launches,
         densify_draws=len(draws), alive=[ln["alive"] for ln in lines if "alive" in ln],
-        nan_mean=raised, seconds=seconds)
+        nan_mean=raised, checkpoint_leaves=len(specs), densify_round=round_, seconds=seconds)
     return launches
 
 

@@ -76,15 +76,18 @@ def test_trainer_mesh_1x2(tmp_path):
     assert final[0]["capacity"] == RenderConfig().instance_capacity(n)
     params = load_ply(out, device="cpu")
     assert params.num_gaussians == 800 and bool(params.means.isfinite().all())  # the alive ones
-    with np.load(ckpt) as state:
-        assert len(state.files) == 6 + 3 * 5 + 4
-        for k in state.files:  # every per-Gaussian tensor whole: both shards
-            if k.startswith(("params.", "mu.", "nu.", "grad_", "max_")):
-                assert state[k].shape[0] == n, k
-        alive = state["params.alive"]
-        assert int(state["step"]) == 11 and int(alive.sum()) == 800
-        np.testing.assert_array_equal(state["params.means"][alive], params.means.numpy())
-        assert np.abs(state["mu.means"][alive]).max() > 0
+    from tpusplat_torch.train.checkpoint import JAX_LEAVES
+
+    with np.load(ckpt) as data:  # the JAX package's layout: 26 leaves and the treedef
+        assert len(data.files) == len(JAX_LEAVES) + 1 == 27
+        state = {name: data[f"leaf_{i}"] for i, name in enumerate(JAX_LEAVES)}
+    for k, v in state.items():  # every per-Gaussian tensor whole: both shards
+        if v.ndim:
+            assert v.shape[0] == n, k
+    alive = state["params.alive"]
+    assert int(state["step"]) == 11 and int(alive.sum()) == 800
+    np.testing.assert_array_equal(state["params.means"][alive], params.means.numpy())
+    assert np.abs(state["opt_state.means.mu"][alive]).max() > 0
 
 
 def test_trainer_mesh_1x2_overlap(tmp_path):

@@ -6,7 +6,8 @@ tests/test_train_e2e.py), on the CPU:
     the first two losses agree;
   * a whole synthetic run through both, three densify rounds (clones and
     splits, their noise drawn from the same threefry keys) and an opacity
-    reset: every log line and the two output PLYs agree;
+    reset: every log line, the two output PLYs and the two ``--ckpt``
+    files agree, and each package reads the other's file;
   * the NeRF-synthetic dress rehearsal with the reference's own assertions,
     plus ``--ckpt`` (the checkpoint holds the final state) and
     ``--watchdog-secs``;
@@ -25,7 +26,7 @@ from tests.test_train_e2e import _write_colmap_dataset, _write_dataset
 from tpusplat_torch import trainer
 from tpusplat_torch.io.ply import load_ply
 from tpusplat_torch.train import densify
-from tpusplat_torch.train.checkpoint import load_checkpoint, state_tensors
+from tpusplat_torch.train.checkpoint import JAX_LEAVES, load_checkpoint, state_tensors
 from tpusplat_torch.train.step import make_optimizer
 
 torch.set_num_threads(2)
@@ -76,13 +77,15 @@ def test_whole_run_through_densify_matches_jax(tmp_path, capsys, monkeypatch):
     is 0.01 * the extent 6), round 2 clones and splits, round 3, after the
     reset, finds no candidate but still takes its key. Every log line: alive
     equal, loss at rtol 1e-4; the PLYs: the same Gaussians, parameters at 2
-    lr steps a step."""
+    lr steps a step; the checkpoints, leaf by leaf (see _compare_checkpoints)."""
     steps = 14
     args = ["--synthetic", "--steps", str(steps), "--width", "64", "--height", "48",
             "--n-init", "200", "--capacity", "2400", "--sh-degree", "1", "--cameras", "4",
             "--densify-every", "4", "--densify-until", "12", "--opacity-reset-every", "8",
             "--log-every", "1"]
-    want = _jax_lines([*args, "--xla", "--out", str(tmp_path / "j.ply")], monkeypatch)
+    jckpt, tckpt = tmp_path / "j.npz", tmp_path / "t.npz"
+    want = _jax_lines([*args, "--xla", "--out", str(tmp_path / "j.ply"), "--ckpt", str(jckpt)],
+                      monkeypatch)
 
     rounds = []
     port_densify = densify.densify_and_prune
@@ -96,7 +99,8 @@ def test_whole_run_through_densify_matches_jax(tmp_path, capsys, monkeypatch):
         return out
 
     monkeypatch.setattr(densify, "densify_and_prune", counted)
-    summary, lines = _port([*args, "--out", str(tmp_path / "t.ply")], capsys)
+    summary, lines = _port([*args, "--out", str(tmp_path / "t.ply"), "--ckpt", str(tckpt)],
+                           capsys)
     assert len(rounds) == 3 and all(r["split"] for r in rounds[:2]) and rounds[1]["clone"], rounds
 
     w_lines = [ln for ln in want if "loss" in ln]
@@ -118,6 +122,56 @@ def test_whole_run_through_densify_matches_jax(tmp_path, capsys, monkeypatch):
     for f, lr in lrs.items():
         np.testing.assert_allclose(getattr(pt, f).numpy(), getattr(pj, f).numpy(),
                                    atol=2 * lr * steps, err_msg=f)
+    _compare_checkpoints(jckpt, tckpt, lrs, steps, summary["state"])
+
+
+def _compare_checkpoints(jax_path, port_path, lrs, steps, port_state):
+    """The two trainers' checkpoints of the same run, leaf by leaf: alive,
+    step, the counts and grad_count equal; the parameters at the PLYs'
+    bounds; Adam's moments within 1e-3 of each leaf's largest magnitude;
+    grad_accum at rtol 1e-3, max_radii at atol 1 (the largest differences
+    are printed). Then each package loads the other's file."""
+    import jax
+
+    from tpusplat.io.synthetic import random_scene as jax_random_scene
+    from tpusplat.train import checkpoint as jax_checkpoint
+    from tpusplat.train.step import create_train_state, make_optimizer as jax_optimizer
+
+    largest = {}
+    with np.load(jax_path) as jf, np.load(port_path) as tf:
+        assert sorted(jf.files) == sorted(tf.files)
+        assert jf["__treedef__"].tobytes() == tf["__treedef__"].tobytes()
+        for i, name in enumerate(JAX_LEAVES):
+            j, t = jf[f"leaf_{i}"], tf[f"leaf_{i}"]
+            assert j.dtype == t.dtype and j.shape == t.shape, name
+            if name.endswith(("count", ".alive")) or name == "step":
+                np.testing.assert_array_equal(t, j, err_msg=name)
+                continue
+            err = float(np.abs(t - j).max())
+            if name.startswith("params."):
+                largest[name] = err
+                np.testing.assert_allclose(t, j, atol=2 * lrs[name[7:]] * steps, err_msg=name)
+            elif name.endswith((".mu", ".nu")):
+                largest[name] = err / float(np.abs(j).max())
+                np.testing.assert_allclose(t, j, atol=1e-3 * np.abs(j).max(), err_msg=name)
+            elif name == "grad_accum":
+                largest[name] = float((np.abs(t - j) / np.maximum(np.abs(j), 1e-30)).max())
+                np.testing.assert_allclose(t, j, rtol=1e-3, err_msg=name)
+            else:
+                largest[name] = err
+                np.testing.assert_allclose(t, j, atol=1, err_msg=name)
+        n = jf["leaf_0"].shape[0]
+    print("checkpoint differences (params: abs; moments: over the leaf's largest; "
+          "grad_accum: relative; max_radii: abs):", json.dumps(largest))
+
+    ported = load_checkpoint(port_path, port_state)
+    from_jax = load_checkpoint(jax_path, port_state)
+    assert torch.equal(from_jax.params.alive, ported.params.alive)
+    assert torch.equal(from_jax.step, ported.step)
+    back = jax_checkpoint.load_checkpoint(
+        str(port_path), create_train_state(jax_random_scene(n), jax_optimizer()))
+    for name, leaf in zip(JAX_LEAVES, jax.tree_util.tree_leaves(back)):
+        assert np.array_equal(np.asarray(leaf), state_tensors(ported)[name].numpy()), name
 
 
 def test_dataset_dress_rehearsal(tmp_path, capsys):

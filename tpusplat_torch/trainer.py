@@ -18,8 +18,11 @@ every Kth view and trains on the rest. ``--watchdog-secs`` exits with code
 The flags are those of ``apps/train.py`` plus ``--device`` (default
 ``cuda``; ``cpu`` runs the plain PyTorch path) and ``--dist-init``;
 ``--xla`` is refused (the port routes by tensor device: a CPU tensor takes
-the plain path). ``--ckpt`` takes the ``.npz`` form only. ``TPUSPLAT_*``
-environment variables apply under the flags.
+the plain path). ``--ckpt`` takes the ``.npz`` form only, and writes the
+JAX package's layout (:mod:`tpusplat_torch.train.checkpoint`): the JAX
+package's ``load_checkpoint`` reads it, and the port's reads the file of
+``apps/train.py --ckpt``. ``TPUSPLAT_*`` environment variables apply under
+the flags.
 
 ``--mesh DATAxTILE`` trains over the tile-sharded path
 (:mod:`tpusplat_torch.parallel.sharded`), one process per rank, each step on
@@ -77,7 +80,8 @@ def main(argv=None) -> dict:
                    help="log eval PSNR/SSIM every N steps (0 = final only)")
     p.add_argument("--out", default="trained.ply")
     p.add_argument("--ckpt", default=None,
-                   help="checkpoint path (.npz): the whole train state, written at the end")
+                   help="checkpoint path (.npz): the whole train state, written at the end "
+                        "in the JAX package's layout (apps/train.py's)")
     p.add_argument("--log-every", type=int, default=50)
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     p.add_argument("--mesh", default=None,
