@@ -128,7 +128,16 @@ Phases, one output line each; any failure exits non-zero:
  17. bench_tools: kernel_bench (twice: inputs built, then cached),
      plumb_bench, micro, strip_bench 8, measure_strip_projection and
      scaling (two ranks on the card over gloo), each once at the garden
-     shapes, its JSON and seconds logged.
+     shapes, its JSON and seconds logged;
+ 18. headline: ``bench.headline`` (``bench.py``'s counterpart: the MSE
+     step's forward and backward, host-differenced) in process at small,
+     mid, garden (the fwd+bwd, viewer and strip lines) and bicycle (6M
+     Gaussians at 1600x1063, the fwd+bwd line), 5 iterations, the launch
+     counters reset just before each run and read just after, then one
+     step with the counters reset; each configuration's settled capacity
+     (garden's and bicycle's beside the JAX package's recorded ones), peak
+     memory and lines; fails on overflow, a time or rate not finite and
+     positive, a black image or a kernel of the step not launched.
 The line before the last is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``.
 
@@ -852,11 +861,14 @@ def phase_garden_training(torch, dev, params, cams, cfg):
     return cfg, launches
 
 
-def phase_kernels(torch, dev, params, cam, cfg):
-    """Each kernel against its plain version at the garden shapes, timed."""
+def phase_kernels(torch, dev, params, cam, cfg, label="garden"):
+    """Each kernel against its plain version at the shapes of the scene
+    ``label`` names (garden in the main run, bicycle in the headline
+    phase), timed; logged as the phase ``kernels_<label>``."""
     from tpusplat_torch.ops import binning, emission, rasterize, segment_reduce
     from tpusplat_torch.ops.preprocess import preprocess
 
+    t0 = time.perf_counter()
     n = params.num_gaussians
     w, h = cam.width, cam.height
     tiles_x, tiles_y = cfg.tile_grid(w, h)
@@ -869,7 +881,7 @@ def phase_kernels(torch, dev, params, cam, cfg):
         got = emission.emit_instances(*em_args)
         want = binning.expand_instances_sorted(*em_args)
         for name, a, b in zip(("tile", "gid", "total", "overflow"), got, want):
-            check_equal(f"garden emission {name}", a, b)
+            check_equal(f"{label} emission {name}", a, b)
         bufs = emission.output_buffers(n, cap, dev)
         out["emission"] = dict(
             max_abs_err=max(float((a.long() - b.long()).abs().max())
@@ -908,9 +920,9 @@ def phase_kernels(torch, dev, params, cam, cfg):
         out["forward_blend"] = dict(
             cull=dict(instance_warp_pairs=pairs_iw, culled=culled_iw,
                       culled_share=culled_iw / max(pairs_iw, 1), needed=walked_iw),
-            max_abs_err=max(check_close("garden forward image", img, img_p, atol=3e-5,
+            max_abs_err=max(check_close(f"{label} forward image", img, img_p, atol=3e-5,
                                         rtol=1e-4),
-                            check_close("garden forward transmittance", tmap, tmap_p,
+                            check_close(f"{label} forward transmittance", tmap, tmap_p,
                                         atol=3e-5)),
             ms=cuda_ms(torch, lambda: rasterize.forward_blend(*fw_args), reps=20),
             plain_ms=cuda_ms(torch, lambda: rasterize.blend_plain(*fw_args), reps=2),
@@ -930,7 +942,7 @@ def phase_kernels(torch, dev, params, cam, cfg):
         d_img, d_tmap = seeded_cotangents(torch, img, tmap, seed=2)
         bw_args = (attr, starts, ends, img, tmap, d_img, d_tmap, tiles_x, 0, w, h, cfg_p)
         d_attr = rasterize.backward_blend(*bw_args)
-        check_equal("garden backward blend, two launches", d_attr[:, :live],
+        check_equal(f"{label} backward blend, two launches", d_attr[:, :live],
                     rasterize.backward_blend(*bw_args)[:, :live])
         r0, nr = tiles_y // 2 - 2, 4
         tsl = slice(r0 * tiles_x, (r0 + nr) * tiles_x)
@@ -941,7 +953,7 @@ def phase_kernels(torch, dev, params, cam, cfg):
         d_strip = rasterize.backward_blend(*st_args)
         d_strip_p = rasterize.backward_blend_plain(*st_args)
         out["backward_blend"] = dict(
-            max_abs_err=check_rows("garden backward blend (strip)", d_strip[:, lo:hi],
+            max_abs_err=check_rows(f"{label} backward blend (strip)", d_strip[:, lo:hi],
                                    d_strip_p[:, lo:hi]),
             max_err_is="normalised by each row's largest magnitude",
             ms=cuda_ms(torch, lambda: rasterize.backward_blend(*bw_args), reps=20),
@@ -967,15 +979,15 @@ def phase_kernels(torch, dev, params, cam, cfg):
         rows, gid_s, bounds = rasterize.sort_grad_rows(d_attr, binned.gauss_id, n)
         r_rows, _, _ = rasterize.sort_grad_rows(random_rows(torch, binned.gauss_id, n, seed=3),
                                                 binned.gauss_id, n)
-        seg_err = check_close("garden segment reduce",
+        seg_err = check_close(f"{label} segment reduce",
                               segment_reduce.segment_reduce(r_rows, gid_s, bounds),
                               segment_reduce.segment_reduce_plain(r_rows, gid_s, bounds),
                               atol=1e-4)
-        check_equal("garden segment reduce, two launches",
+        check_equal(f"{label} segment reduce, two launches",
                     segment_reduce.segment_reduce(rows, gid_s, bounds),
                     segment_reduce.segment_reduce(rows, gid_s, bounds))
         a_rows, a_gid, a_bounds = adversarial_ids(torch, n, dev, seed=5)
-        a_err = check_close("garden segment reduce (adversarial ids)",
+        a_err = check_close(f"{label} segment reduce (adversarial ids)",
                             segment_reduce.segment_reduce(a_rows, a_gid, a_bounds),
                             segment_reduce.segment_reduce_plain(a_rows, a_gid, a_bounds),
                             atol=1e-4)
@@ -1003,7 +1015,8 @@ def phase_kernels(torch, dev, params, cam, cfg):
     # The timing loops' launches count on no path.
     emission.LAUNCHES = rasterize.FORWARD_LAUNCHES = rasterize.BACKWARD_LAUNCHES = 0
     segment_reduce.LAUNCHES = 0
-    log(phase="kernels_garden", num_instances=live, max_tile_count=max_count, kernels=out)
+    log(phase=f"kernels_{label}", seconds=time.perf_counter() - t0, num_instances=live,
+        max_tile_count=max_count, kernels=out)
     return out
 
 
@@ -2040,6 +2053,104 @@ def phase_bench_tools(torch, dev):
     return out
 
 
+# The headline harness (bench.py's counterpart): its configurations in the
+# order they run, its iterations, and the capacities the JAX package settled
+# at garden and bicycle scale on its TPU (a record, not a gate).
+HEADLINE_CONFIGS, HEADLINE_ITERS = ("small", "mid", "garden", "bicycle"), 5
+HEADLINE_LINES = dict(garden=("fwd+bwd", "viewer", "VIEWER", "strip", "STRIP", "fwd+bwd"),
+                      other=("fwd+bwd", "fwd+bwd"))
+JAX_CAPACITY = dict(garden=(4_397_056, "BENCH_r05.json"),
+                    bicycle=(12_484_608, "docs/PROFILE.md:176"))
+
+
+def phase_headline(torch, dev):
+    """``bench.headline`` in process at each of ``HEADLINE_CONFIGS`` (garden
+    with every line, the others with the fwd+bwd line), the launch counters
+    reset just before each run and read just after; then one headline step
+    with the counters reset (its launches, and its loss: a black image has
+    loss 0). Fails on overflow, a value not finite and positive, a black
+    image, or a kernel of the step not launched in a run. At garden, a
+    profiler window over three headline steps (the device's idle share and
+    its top kernels); at bicycle, every kernel of the step held against its
+    plain version on bicycle's inputs (``phase_kernels``)."""
+    from tpusplat_torch.bench import headline, profile_detail
+    from tpusplat_torch.ops import emission, rasterize, segment_reduce
+
+    def counters():
+        return dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES,
+                    backward_blend=rasterize.BACKWARD_LAUNCHES,
+                    segment_reduce=segment_reduce.LAUNCHES)
+
+    def reset():
+        emission.LAUNCHES = rasterize.FORWARD_LAUNCHES = 0
+        rasterize.BACKWARD_LAUNCHES = segment_reduce.LAUNCHES = 0
+
+    out = {}
+    for conf in HEADLINE_CONFIGS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params, cam, cfg = inputs = headline.scene(conf, dev)
+        n = params.num_gaussians
+        capacity = cfg.instance_capacity(n)
+        setup_s = time.perf_counter() - t0
+        reset()
+        lines = headline.run(conf, dev, iters=HEADLINE_ITERS, inputs=inputs)
+        launches = counters()
+        peak = torch.cuda.max_memory_allocated()
+        reset()
+        loss, grads, aux = headline.loss_and_grads(*headline.split_trainable(params), cam, cfg)
+        torch.cuda.synchronize()
+        step_launches = counters()
+        # a detail line's mode, or a metric line's first word
+        kinds = [ln["mode"] if "mode" in ln else ln["metric"].split(" ")[0] for ln in lines]
+        want = HEADLINE_LINES["garden" if conf == "garden" else "other"]
+        if kinds != list(want) or "metric" not in lines[-1]:
+            fail(f"headline {conf}: lines {kinds}, expected {want}, the headline last")
+        values = [ln[k] for ln in lines for k in ("host_ms", "event_ms", "value", "mpix_per_s",
+                                                  "strip_ms_max") if k in ln]
+        if not all(math.isfinite(v) and v > 0 for v in values):
+            fail(f"headline {conf}: a time or rate not finite and positive: {values}")
+        if int(aux["capacity_overflow"]) != 0:
+            fail(f"headline {conf}: capacity overflow {int(aux['capacity_overflow'])}")
+        if not (math.isfinite(float(loss)) and float(loss) > 0.0):
+            fail(f"headline {conf}: loss {float(loss)}: the image is black or not finite")
+        if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+            fail(f"headline {conf}: a gradient not finite")
+        if min(launches.values()) < 1 or min(step_launches.values()) < 1:
+            fail(f"headline {conf}: a kernel not launched ({launches}; a step "
+                 f"{step_launches})")
+        res = dict(config=conf, n=n, width=cam.width, height=cam.height, capacity=capacity,
+                   num_instances=int(aux["num_instances"]), setup_s=setup_s,
+                   seconds=time.perf_counter() - t0, peak_mem_bytes=peak,
+                   peak_mem_gib=peak / 2**30, loss=float(loss), launches=launches,
+                   launches_step=step_launches,
+                   mpix={ln["metric"]: ln["value"] for ln in lines if "metric" in ln})
+        if conf in JAX_CAPACITY:
+            jax_cap, source = JAX_CAPACITY[conf]
+            res["jax_capacity"] = dict(capacity=jax_cap, source=source,
+                                       gap=(capacity - jax_cap) / jax_cap)
+        log(phase="headline", **res)
+        out[conf] = res
+        del grads, aux
+        if conf == "garden":
+            t0 = time.perf_counter()
+            trainable, alive = headline.split_trainable(params)
+            win = profile_detail.profile_window(
+                lambda: headline.step(trainable, alive, cam, cfg), dev, steps=3)
+            res["profile_window"] = win
+            log(phase="headline_profile", config=conf, seconds=time.perf_counter() - t0,
+                host_ms=lines[0]["host_ms"], event_ms=lines[0]["event_ms"], **win)
+            if not win["profiler_device_events"]:
+                print("chip_smoke: headline_profile: the profiler window recorded no device "
+                      "activity", file=sys.stderr)
+            del trainable, alive
+        if conf == "bicycle":
+            torch.cuda.empty_cache()
+            res["kernels"] = phase_kernels(torch, dev, params, cam, cfg, label="bicycle")
+        del params, inputs
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2145,6 +2256,7 @@ def run(torch, dev, kind: str, smi: str) -> int:
     phase_gpu_gate(torch, dev)
     torch.cuda.empty_cache()
     phase_bench_tools(torch, dev)
+    headline = phase_headline(torch, dev)
 
     sources = dict(
         emission=("tpusplat_torch/csrc/emission.cu", "tpusplat/ops/emission.py:76"),
@@ -2170,6 +2282,8 @@ def run(torch, dev, kind: str, smi: str) -> int:
             launches=training[name] if name in training else t["launches"],
             launches_serving=serving.get(name), launches_data_training=data.get(name),
             launches_session=session.get(name),
+            launches_headline=headline["garden"]["launches"].get(name),
+            launches_headline_step=headline["garden"]["launches_step"].get(name),
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
             **{k: t[k] for k in ("kernel_ms", "ms_is", "wrapper_ms", "runs_route_ms",

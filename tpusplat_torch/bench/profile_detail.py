@@ -41,8 +41,9 @@ TOP_KERNELS = 10
 def scene(conf, device, seed: int = 0):
     """(params, camera, cfg) of a configuration (a name of ``CONFIGS`` or a
     dict like its entries): ``random_scene`` in a cube of half-side 4, the
-    camera at (0, 0.5, 9) looking at the origin, fov 60, tight radius, and
-    the capacity from a preprocess probe x1.05 (``bench.py``'s settling)."""
+    camera at (0, 0.5, 9) looking at the origin, fov 60, tight radius, the
+    TPUSPLAT_* overrides, and the capacity from a preprocess probe x1.05
+    (``bench.py``'s settling)."""
     from tpusplat_torch import RenderConfig, look_at_camera, random_scene
     from tpusplat_torch.ops.preprocess import preprocess
 
@@ -51,7 +52,7 @@ def scene(conf, device, seed: int = 0):
                           extent=4.0, device=device)
     cam = look_at_camera(EYE, TARGET, s["w"], s["h"], fov_deg=FOV, device=device)
     cfg = RenderConfig(sh_degree=s["sh"], capacity_mult=s["cap"], max_per_tile=4096,
-                       tight_radius=True)
+                       tight_radius=True).with_env_overrides()
     with torch.no_grad():
         needed = int(preprocess(params, cam, cfg).ntiles.sum())
     return params, cam, dataclasses.replace(cfg, capacity=int(needed * 1.05))
@@ -146,48 +147,39 @@ def _merged_ms(intervals, lo, hi) -> float:
     return busy / 1e3
 
 
-def train_window(params, cam, cfg, device, steps: int = 3) -> dict:
-    """One ``torch.profiler`` window over ``steps`` train steps after a
-    warm-up step: window ms, device-busy ms, idle share, launches a step and
-    the top kernels by device time; then the same steps unprofiled (CUDA
-    events), and the idle share that the window's busy time leaves in them.
-    On the CPU (a rehearsal) the trace holds no device activity, and the
-    result says so."""
+def profile_window(fn, device, steps: int = 3) -> dict:
+    """One ``torch.profiler`` window over ``steps`` calls of ``fn`` (warmed
+    by the caller): window ms, device-busy ms, idle share, launches a call
+    and the top kernels by device time; then the same calls unprofiled
+    (CUDA events), and the idle share that the window's busy time leaves in
+    them. On the CPU (a rehearsal) the trace holds no device activity, and
+    the result says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from tpusplat_torch.train.step import create_train_state, make_optimizer, train_step
-
-    gen = torch.Generator(device=params.device).manual_seed(1)
-    target = torch.rand((cam.height, cam.width, 3), generator=gen, device=params.device)
-    opt = make_optimizer(scene_extent=4.0)
-    state, _ = train_step(create_train_state(params), cam, target, cfg, opt)  # warm-up
     sync(device)
     cuda = torch.device(device).type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
-        with record_function("train_window"):
+        with record_function("window"):
             for _ in range(steps):
-                state, metrics = train_step(state, cam, target, cfg, opt)
+                fn()
             sync(device)
     events = prof.events()
-    win = next(e for e in events if e.name == "train_window"
-               and e.device_type == DeviceType.CPU)
+    win = next(e for e in events if e.name == "window" and e.device_type == DeviceType.CPU)
     lo, hi = win.time_range.start, win.time_range.end
     dev_events = [e for e in events if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False) and e.name != "train_window"]
+                  and not getattr(e, "is_user_annotation", False) and e.name != "window"]
     copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in dev_events)
-    out = dict(steps=steps, window_ms=(hi - lo) / 1e3,
-               overflow=int(metrics["capacity_overflow"]) + int(metrics["gauss_overflow"]),
-               profiler_device_events=len(dev_events))
+    out = dict(steps=steps, window_ms=(hi - lo) / 1e3, profiler_device_events=len(dev_events))
     if not dev_events:
         out.update(device_busy_ms=None, idle_share=None,
                    note="the profiler recorded no device activity in the window")
         return out
-    # The same steps without the profiler, whose host-side recording slows
+    # The same calls without the profiler, whose host-side recording slows
     # the dispatch and so stretches the window: the device's kernel time a
-    # step over this step time estimates the idle share of a plain step.
-    step_ms, _ = time_ms(lambda: train_step(state, cam, target, cfg, opt), device, steps, 0)
+    # call over this call time estimates the idle share of a plain call.
+    step_ms, _ = time_ms(fn, device, steps, 0)
     busy = _merged_ms([(e.time_range.start, e.time_range.end) for e in dev_events], lo, hi)
     by_name: dict = {}
     for e in dev_events:
@@ -206,6 +198,25 @@ def train_window(params, cam, cfg, device, steps: int = 3) -> dict:
         top_kernels=[dict(name=k[:160], ms_per_step=v[0] / steps, calls_per_step=v[1] / steps)
                      for k, v in top])
     return out
+
+
+def train_window(params, cam, cfg, device, steps: int = 3) -> dict:
+    """:func:`profile_window` over ``steps`` train steps after a warm-up
+    step, with the overflow of the last step."""
+    from tpusplat_torch.train.step import create_train_state, make_optimizer, train_step
+
+    gen = torch.Generator(device=params.device).manual_seed(1)
+    target = torch.rand((cam.height, cam.width, 3), generator=gen, device=params.device)
+    opt = make_optimizer(scene_extent=4.0)
+    last = {}
+    last["state"], _ = train_step(create_train_state(params), cam, target, cfg, opt)  # warm-up
+
+    def one():
+        last["state"], last["metrics"] = train_step(last["state"], cam, target, cfg, opt)
+
+    out = profile_window(one, device, steps)
+    m = last["metrics"]
+    return dict(out, overflow=int(m["capacity_overflow"]) + int(m["gauss_overflow"]))
 
 
 def strip_stages(params, cam, cfg, device, shards: int, reps: int = 5) -> dict:
