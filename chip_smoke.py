@@ -29,12 +29,31 @@ Phases, one output line each; any failure exits non-zero:
      pipeline against the plain pipeline on the CPU, same inputs, at 6k
      Gaussians, 128x128, SH3 (normalised atol 1e-4);
   5. garden serving: 1.4M Gaussians at 1920x1080, SH3, tight radius,
-     capacity from a preprocess probe x1.05; ``render_auto`` on a 3-camera
-     orbit with the launch counters reset just before and read just after;
-  6. garden training: ``train_step`` at the same shapes against renders of
-     a second random scene, one warm-up step and three timed steps with the
-     regrow retry, counters reset just before and read just after; then one
-     step split into forward, backward and Adam;
+     capacity from a preprocess probe x1.05; ``render_auto`` replaying
+     the phase's compiled render (captured at the warm-up frame) on a
+     3-camera orbit, timed, with the launch counters reset just before and
+     read just after (a replay runs no wrapper); the orbit again in a
+     profiler window a frame, emission and forward counted from the trace
+     at least once a frame; ``render_profiled`` twice, with the cudaMalloc
+     calls each made;
+  6. garden training: the eager ``train_step`` at the same shapes against
+     renders of a second random scene, one warm-up step and three timed
+     steps with the regrow retry, counters reset just before and read just
+     after; then one step split into forward, backward and Adam;
+ 6b. compiled: each compiled entry point at the garden shapes against its
+     eager function on the same inputs (``tpusplat_torch.compiled``): three
+     ``render_auto`` frames against ``render_stages`` and a forced regrow
+     (half the capacity) that captures anew and returns the exact frame;
+     three compiled ``train_step``s from one state against three eager ones
+     (every leaf of the state and the losses). Bit for bit wherever two
+     eager runs are bit-equal, else within the forward's bounds (atol 3e-5,
+     rtol 1e-4) or the sharded steps' (parameters 2e-6, moments 1e-4 of
+     their largest), and those outputs are named; one capture and a replay
+     a call; each compiled call in a profiler window, each kernel counted
+     from the trace at least once a call, the wrappers' counters (reset
+     just before) still at a replay; eager and compiled times in
+     turns (host-differenced and CUDA events), the capture seconds, and a
+     ``profile_window`` over three compiled train steps;
   7. kernels at the garden shapes: each against its plain version, timed
      with CUDA events beside its bound, the plain version's time and, where
      one PyTorch call computes the same function, that call's time; the
@@ -46,7 +65,10 @@ Phases, one output line each; any failure exits non-zero:
      the run lengths the segment reduce sees; the segment reduce on
      adversarial ids (a run of 1e5 rows, empty runs, NaN sentinels);
   8. trainer rehearsal: ``python -m tpusplat_torch.trainer --synthetic``
-     for 30 steps at 128x128; the loss must fall;
+     for 30 steps at 128x128 in a profiler window; the loss must fall, and
+     the steps must have been graph replays (the trainer's compiled step's
+     captures and replays) that ran each kernel at least once a step,
+     counted from the trace (the same checks in phase 10);
   9. threefry: the densify draws (``prng``: jax.random's threefry stream
      and normal) on the card against the CPU, bit for bit: the normal of
      all 2**23 uniforms it can draw, and the bits and normals of the
@@ -58,10 +80,12 @@ Phases, one output line each; any failure exits non-zero:
      ``load_colmap_scene`` (view and projection matrices within 1e-5,
      images within 0.5/255 + 1e-6); ``trainer.main(["--data", ...,
      "--holdout", "8", "--steps", "60", "--capacity", "1400000", "--ckpt",
-     ..., "--watchdog-secs", "300", ...])`` with the launch counters reset
-     just before and read just after (the loss falls, the held-out PSNR
-     rises, two held-out views, overflow 0 in every logged line, each
-     kernel launched at least once a step, every densify round's split
+     ..., "--watchdog-secs", "300", ...])`` in a profiler window (its
+     seconds include the profiler's), with the launch counters reset just
+     before and read just after (the loss falls, the held-out PSNR rises,
+     two held-out views, overflow 0 in every logged line, each kernel
+     launched at least once a step by the trace's count, every densify
+     round's split
      noise drawn on the card at [1.4M, 3]); the checkpoint in the JAX
      package's layout (exactly ``leaf_0`` ... ``leaf_25`` and
      ``__treedef__``, the treedef the port's constant, every leaf JAX's
@@ -109,11 +133,12 @@ Phases, one output line each; any failure exits non-zero:
  13. session: the interactive loop (``run_interactive``) on a ``Session`` of
      the garden scene at 1920x1080, fov 60, from (0, 0.5, 9), keys w w d
      left up, profiled every second frame, the launch counters reset just
-     before and read just after (emission and forward every frame): the
-     position within 1e-9 of the motion constants' result, frame 0 and a
-     frame after ``resize(1280, 720)`` bit-equal to ``render_auto`` at the
-     same camera, the status and live stage lines in the overlay; the frame
-     ms, the EMA and the stage ms;
+     before and read just after: the position within 1e-9 of the motion
+     constants' result, frame 0 and a frame after ``resize(1280, 720)``
+     bit-equal to ``render_auto`` at the same camera, the status and live
+     stage lines in the overlay; the frame ms, the EMA and the stage ms;
+     then the keys again in a profiler window (emission and forward every
+     frame, counted from the trace: the drawn frames replay a graph);
  14. dryrun: ``run_dryrun(4)``, four ranks on the one card over gloo (mesh
      2x2): the sharded render against the one-process render, the overlap
      step's loss against the monolithic one's, the compact exchange
@@ -133,12 +158,21 @@ Phases, one output line each; any failure exits non-zero:
      step's forward and backward, host-differenced) in process at small,
      mid, garden (the fwd+bwd, viewer and strip lines) and bicycle (6M
      Gaussians at 1600x1063, the fwd+bwd line), 5 iterations, the launch
-     counters reset just before each run and read just after, then one
+     counters reset just before each run and read just after (the wrapper
+     calls of the compiled steps' warm-ups and captures), then one eager
      step with the counters reset; each configuration's settled capacity
      (garden's and bicycle's beside the JAX package's recorded ones), peak
      memory and lines; fails on overflow, a time or rate not finite and
-     positive, a black image or a kernel of the step not launched.
-The line before the last is the ``{"kernels": [...]}`` summary; the last
+     positive, a black image or a kernel of the step not launched. The
+     harness times the compiled step; beside it (``compiled_headline``) the
+     compiled step against the eager one at each configuration: outputs bit
+     for bit where two eager calls are, one replayed step in a profiler
+     window (every kernel counted from the trace; no wrapper ran), times in
+     turns, the capture seconds, and at garden a profiler window over three
+     compiled steps.
+The line before the last is the ``{"kernels": [...]}`` summary (``launches``:
+the wrappers' counters over the eager garden training steps; ``*_traced``:
+device launches counted by name in the trace of graph replays); the last
 line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --nccl
@@ -151,6 +185,7 @@ four cards.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -744,38 +779,59 @@ def phase_grad_6k(torch, dev):
 
 
 def phase_garden_serving(torch, dev, params, cams, cfg):
-    """render_auto on the orbit, the serving path's counters around it."""
+    """render_auto on the orbit, replaying the phase's own compiled render:
+    the warm-up frame captures it, then three timed frames with the
+    wrappers' counters reset just before and read just after (a replay runs
+    no wrapper: they stay at 0); then the orbit again, a profiler window a
+    frame, each kernel's launches counted from the trace (emission and
+    forward at least once a frame). Then ``render_profiled`` (eager) twice,
+    with the cudaMalloc calls each made."""
     from tpusplat_torch.ops import emission, rasterize
-    from tpusplat_torch.render import render_auto, render_profiled
+    from tpusplat_torch.render import compile_render, render_auto, render_profiled
 
     w, h = cams[0].width, cams[0].height
-    render_auto(params, cams[0], cfg)  # warm-up frame
+    alloc0 = allocator(torch)
+    render = compile_render()
+    render_auto(params, cams[0], cfg, compiled=render)  # warm-up frame: the capture
     torch.cuda.synchronize()
     emission.LAUNCHES = 0
     rasterize.FORWARD_LAUNCHES = 0
     frames_ms, instances = [], []
     for i, cam in enumerate(cams):
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        before = (emission.LAUNCHES, rasterize.FORWARD_LAUNCHES)
         e0.record()
-        img, aux, cfg = render_auto(params, cam, cfg)
+        img, aux, cfg = render_auto(params, cam, cfg, compiled=render)
         e1.record()
         e1.synchronize()
         frames_ms.append(e0.elapsed_time(e1))
         instances.append(int(aux["num_instances"]))
         if int(aux["capacity_overflow"]) != 0:
             fail(f"garden frame {i}: capacity overflow")
-        if emission.LAUNCHES <= before[0] or rasterize.FORWARD_LAUNCHES <= before[1]:
-            fail(f"garden frame {i}: a kernel was not launched")
         if img.shape != (h, w, 3) or not bool(torch.isfinite(img).all()):
             fail(f"garden frame {i}: image not finite or of the wrong shape")
         if float(img.max()) <= 0.0:
             fail(f"garden frame {i}: image all black")
-    launches = dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES)
-    _, _, stage_ms = render_profiled(params, cams[0], cfg)
+    wrapper_calls = dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES)
+    launches = dict(emission=0, forward_blend=0)
+    for i, cam in enumerate(cams):
+        _, traced = traced_launches(torch, lambda cam=cam: render_auto(params, cam, cfg,
+                                                                       compiled=render))
+        if min(traced[k] for k in launches) < 1:
+            fail(f"garden frame {i}: a kernel was not launched ({traced})")
+        for k in launches:
+            launches[k] += traced[k]
+    profiled = []
+    for _ in range(2):  # the graph still held, as a viewer holds it between frames
+        allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        _, _, stage_ms = render_profiled(params, cams[0], cfg)
+        profiled.append(dict(stage_ms=stage_ms, device_allocs=torch.cuda.memory_stats().get(
+            "num_device_alloc", 0) - allocs))
+    del render
     log(phase="garden_serving", n=params.num_gaussians, width=w, height=h,
         capacity=cfg.instance_capacity(params.num_gaussians), frames_ms=frames_ms,
-        num_instances=instances, stage_ms=stage_ms, launches=launches)
+        num_instances=instances, stage_ms=profiled[0]["stage_ms"], profiled=profiled,
+        launches_traced=launches, wrapper_calls=wrapper_calls,
+        allocator=[alloc0, allocator(torch)])
     return cfg, launches
 
 
@@ -784,7 +840,7 @@ def phase_garden_training(torch, dev, params, cams, cfg):
     from tpusplat_torch import random_scene
     from tpusplat_torch.config import regrow
     from tpusplat_torch.ops import emission, rasterize, segment_reduce
-    from tpusplat_torch.render import render_auto
+    from tpusplat_torch.render import compile_render, render_auto
     from tpusplat_torch.train import step as tstep
 
     n = params.num_gaussians
@@ -792,8 +848,9 @@ def phase_garden_training(torch, dev, params, cams, cfg):
     with torch.no_grad():
         gt = random_scene(n, seed=1, sh_degree=3, scale_range=(0.002, 0.02), extent=4.0,
                           device=dev)
-        targets = [render_auto(gt, cam, cfg)[0] for cam in cams]
-        del gt
+        render = compile_render()
+        targets = [render_auto(gt, cam, cfg, compiled=render)[0] for cam in cams]
+        del gt, render
     opt = tstep.make_optimizer(scene_extent=4.0)
     state0 = tstep.create_train_state(params)
     tstep.train_step(state0, cams[0], targets[0], cfg, opt)  # warm-up, discarded
@@ -859,6 +916,275 @@ def phase_garden_training(torch, dev, params, cams, cfg):
         device_allocs=device_allocs, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         mpix_per_s=w * h / (mean_ms * 1e-3) / 1e6)
     return cfg, launches
+
+
+# The compiled phase: timed calls a reading, and the forward's bounds for
+# an output that two eager calls do not give bit for bit.
+COMPILED_ITERS, FORWARD_ATOL, FORWARD_RTOL = 10, 3e-5, 1e-4
+
+
+# Each port kernel's CUDA function, as a profiler trace names it (the
+# kernels live in anonymous namespaces). The emission wrapper launches a
+# scan and then the emit, by which it is counted.
+KERNEL_SYMBOLS = dict(emission="emit_kernel", forward_blend="forward_kernel",
+                      backward_blend="backward_kernel", segment_reduce="segment_reduce_kernel",
+                      segment_reduce_targets="targets_kernel",
+                      segment_reduce_multirange="multirange_kernel")
+PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+)\(")
+
+
+def traced_launches(torch, fn):
+    """``fn()`` in a ``torch.profiler`` window: its result and, for each
+    port kernel, the launches the device ran in the window, counted by name
+    in the trace. A graph replay runs no wrapper, so the wrappers' counters
+    do not see it; the trace does. Fails if the window recorded no device
+    activity at all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = collections.Counter(e.name for e in prof.events()
+                                if e.device_type == DeviceType.CUDA)
+    if not names:
+        fail("traced_launches: the profiler recorded no device activity")
+    seen = collections.Counter()
+    for name, count in names.items():
+        m = PORT_KERNEL.match(name)
+        if m:
+            seen[m.group(1)] += count
+    return out, {k: seen[sym] for k, sym in KERNEL_SYMBOLS.items()}
+
+
+def allocator(torch) -> dict:
+    """The caching allocator's state: GiB reserved, the device's free GiB,
+    cudaMalloc and cudaFree calls, and the retries after a failed cudaMalloc
+    (each frees the whole cache and synchronises)."""
+    st = torch.cuda.memory_stats()
+    return dict(reserved_gib=torch.cuda.memory_reserved() / 2**30,
+                free_gib=torch.cuda.mem_get_info()[0] / 2**30,
+                device_allocs=st.get("num_device_alloc", 0),
+                device_frees=st.get("num_device_free", 0),
+                alloc_retries=st.get("num_alloc_retries", 0))
+
+
+def host_ms(torch, fn, iters: int) -> float:
+    """``bench.py``'s differenced host time of one call, each run fenced by
+    a synchronise: (t_big - t_small) / iters over runs of iters +
+    max(1, iters // 4) and max(1, iters // 4) calls."""
+    def run(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    pad = max(1, iters // 4)
+    run(1)  # a warm call: no first-call allocation in the timed runs
+    small = run(pad)
+    return (run(iters + pad) - small) / iters * 1e3
+
+
+def timed_turns(torch, fns: dict, iters: int = COMPILED_ITERS) -> dict:
+    """Each call of ``fns`` (name -> call) timed in turns, in order then in
+    reverse (eager, compiled, compiled, eager): two readings each of the
+    host-differenced ms and the CUDA-event ms."""
+    out = {k: dict(host_ms=[], event_ms=[]) for k in fns}
+    for name in [*fns, *reversed(list(fns))]:
+        out[name]["host_ms"].append(host_ms(torch, fns[name], iters))
+        out[name]["event_ms"].append(cuda_ms(torch, fns[name], iters))
+    return out
+
+
+def hold_to_eager(what, got: dict, want: dict, repeatable: dict, atol, rtol=0.0):
+    """Each output of ``got`` against ``want``: bit for bit where two eager
+    calls were (``repeatable``), else within atol and rtol. Returns the
+    names held only to the tolerance, with their error."""
+    loose = {}
+    for k, v in got.items():
+        if repeatable[k]:
+            check_equal(f"{what} {k}", v, want[k])
+        else:
+            loose[k] = check_close(f"{what} {k}", v.float(), want[k].float(), atol, rtol)
+    return loose
+
+
+def stats_delta(step, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in step.stats.items()}
+
+
+def phase_compiled(torch, dev, params, cams, cfg):
+    """Each compiled entry point at the garden shapes against its eager
+    function on the same inputs: three ``render_auto`` frames against
+    ``render_stages``, a forced regrow (half the capacity) that captures
+    anew and returns the exact frame, and three compiled ``train_step``s
+    from one state against three eager ones (every leaf of the state). Bit
+    for bit wherever two eager runs are, else within the forward's and the
+    sharded steps' bounds, and those outputs are named. Each compiled call
+    runs in a profiler window: each kernel's launches counted from the
+    trace, at least once a call; the wrappers' counters, reset just before,
+    move at the capture (its warm-up calls and the captured call) and not at
+    a replay, which runs no wrapper. Captures and replays prove the graphs
+    ran. Eager and compiled times in turns, the capture seconds, and a
+    profiler window over three compiled train steps."""
+    from tpusplat_torch.bench import profile_detail
+    from tpusplat_torch.ops import emission, rasterize, segment_reduce
+    from tpusplat_torch.render import compile_render, render_auto, render_stages
+    from tpusplat_torch.train import step as tstep
+    from tpusplat_torch.train.checkpoint import state_tensors
+
+    def counters():
+        return dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES,
+                    backward_blend=rasterize.BACKWARD_LAUNCHES,
+                    segment_reduce=segment_reduce.LAUNCHES)
+
+    def reset():
+        emission.LAUNCHES = rasterize.FORWARD_LAUNCHES = 0
+        rasterize.BACKWARD_LAUNCHES = segment_reduce.LAUNCHES = 0
+
+    n, w, h = params.num_gaussians, cams[0].width, cams[0].height
+    res = dict(n=n, width=w, height=h)
+    outputs = ("image", "transmittance", "num_instances", "visible", "radius")
+
+    def frame(img, aux):
+        return dict(image=img, **{k: aux[k] for k in outputs[1:]})
+
+    def traced_call(what, i, fn, kinds):
+        """fn() traced: its result and launches; fails if a kernel of
+        ``kinds`` did not run, or if a replay (every call after the first)
+        moved a wrapper's counter."""
+        was = counters()
+        out, traced = traced_launches(torch, fn)
+        moved = {k: v - was[k] for k, v in counters().items()}
+        if min(traced[k] for k in kinds) < 1:
+            fail(f"{what} {i}: a kernel was not launched ({traced})")
+        if i > 0 and any(moved.values()):
+            fail(f"{what} {i}: a wrapper ran in a replay ({moved}): not a graph replay")
+        return out, {k: traced[k] for k in kinds}, moved
+
+    # 1. render_auto: three frames, then a forced regrow.
+    render = compile_render()
+    before = dict(render.stats)
+    with torch.no_grad():
+        eager = [frame(*render_stages(params, cam, cfg)) for cam in cams]
+        again = [frame(*render_stages(params, cam, cfg)) for cam in cams]
+        repeatable = {k: all(torch.equal(a[k], b[k]) for a, b in zip(eager, again))
+                      for k in outputs}
+        del again
+        torch.cuda.synchronize()
+        reset()
+        loose, per_frame, wrapper_calls = {}, [], []
+        for i, cam in enumerate(cams):
+            (img, aux, got_cfg), traced, moved = traced_call(
+                "compiled render_auto frame", i,
+                lambda cam=cam: render_auto(params, cam, cfg, compiled=render),
+                ("emission", "forward_blend"))
+            per_frame.append(traced)
+            wrapper_calls.append(moved)
+            if got_cfg is not cfg or int(aux["capacity_overflow"]):
+                fail(f"compiled render_auto frame {i}: overflowed at the settled capacity")
+            loose.update(hold_to_eager(f"compiled render_auto frame {i}", frame(img, aux),
+                                       eager[i], repeatable, FORWARD_ATOL, FORWARD_RTOL))
+        stats = stats_delta(render, before)
+        if stats["captures"] != 1 or stats["replays"] != len(cams):
+            fail(f"compiled render_auto: {stats}, expected one capture and a replay a frame")
+        res["render_auto"] = dict(
+            launches_traced=per_frame, wrapper_calls=wrapper_calls,
+            stats=stats, repeatable=repeatable, loose=loose,
+            times=timed_turns(torch, dict(
+                eager=lambda: render_stages(params, cams[0], cfg),
+                compiled=lambda: render(params, cams[0], cfg))))
+        del eager
+
+        before = dict(render.stats)
+        small = dataclasses.replace(cfg, capacity=cfg.instance_capacity(n) // 2)
+        img, aux, grown = render_auto(params, cams[0], small, compiled=render)
+        stats = stats_delta(render, before)
+        if int(aux["capacity_overflow"]) or grown.capacity <= small.capacity:
+            fail(f"compiled render_auto regrow: overflow {int(aux['capacity_overflow'])}, "
+                 f"capacity {small.capacity} -> {grown.capacity}")
+        if stats["captures"] < 2 or len(render) > 2 or not stats["evictions"]:
+            fail(f"compiled render_auto regrow: {stats}, {len(render)} "
+                 "entries: expected a capture at each capacity, two entries kept")
+        exact = frame(*render_stages(params, cams[0], grown))
+        for k in ("image", "transmittance", "num_instances"):
+            check_equal(f"compiled render_auto regrown frame {k}", frame(img, aux)[k], exact[k])
+        res["regrow"] = dict(capacity=[small.capacity, grown.capacity], stats=stats,
+                             frame="bit-equal to render_stages at the regrown cfg")
+    del render
+    log(phase="compiled_render", **res, seconds_capture=res["render_auto"]["stats"]["capture_s"])
+
+    # 2. train_step: three steps from one state, compiled against eager.
+    gen = torch.Generator(device=dev).manual_seed(1)
+    target = torch.rand((h, w, 3), generator=gen, device=dev)
+    opt = tstep.make_optimizer(scene_extent=4.0)
+
+    def eager_steps():
+        state, losses = tstep.create_train_state(params), []
+        for cam in cams:
+            state, m = tstep.train_step(state, cam, target, cfg, opt)
+            losses.append(m["loss"])
+        return state_tensors(state), torch.stack(losses)
+
+    (ea, la), (eb, lb) = eager_steps(), eager_steps()
+    repeatable = {k: torch.equal(v, eb[k]) for k, v in ea.items()}
+    repeatable["loss"] = torch.equal(la, lb)
+    del eb
+    step = tstep.compile_train_step()
+    state, losses, per_step, wrapper_calls = tstep.create_train_state(params), [], [], []
+    torch.cuda.synchronize()
+    reset()
+    for i, cam in enumerate(cams):
+        (state, m), traced, moved = traced_call(
+            "compiled train_step", i, lambda cam=cam: step(state, cam, target, cfg, opt),
+            ("emission", "forward_blend", "backward_blend", "segment_reduce"))
+        losses.append(m["loss"])
+        per_step.append(traced)
+        wrapper_calls.append(moved)
+        if int(m["capacity_overflow"]):
+            fail("compiled train_step: overflow at the settled capacity")
+    launches = {k: sum(d[k] for d in per_step) for k in per_step[0]}
+    if step.stats["captures"] != 1 or step.stats["replays"] != len(cams):
+        fail(f"compiled train_step: {dict(step.stats)}, expected one capture, a replay a step")
+    got = {**state_tensors(state), "loss": torch.stack(losses)}
+    loose = {}
+    for k, v in got.items():
+        want = la if k == "loss" else ea[k]
+        if repeatable[k]:
+            check_equal(f"compiled train_step {k}", v, want)
+        else:  # the sharded steps' bounds: parameters 2e-6, moments 1e-4 of their largest
+            moment = ".mu" in k or ".nu" in k
+            tol = SHARDED_MOMENT_TOL * float(want.abs().max()) if moment else SHARDED_PARAM_ATOL
+            loose[k] = check_close(f"compiled train_step {k}", v.float(), want.float(), tol,
+                                   SHARDED_LOSS_RTOL if k == "loss" else 0.0)
+    del ea
+    state0 = tstep.create_train_state(params)
+    held = [state]
+
+    def compiled_step():
+        held[0], m = step(held[0], cams[0], target, cfg, opt)
+        return m
+
+    times = timed_turns(torch, dict(
+        eager=lambda: tstep.train_step(state0, cams[0], target, cfg, opt),
+        compiled=compiled_step))
+    t0 = time.perf_counter()
+    win = profile_detail.profile_window(compiled_step, dev, steps=3)
+    res = dict(n=n, width=w, height=h, losses=[float(v) for v in losses],
+               launches_traced=launches, launches_traced_per_step=per_step,
+               wrapper_calls_per_step=wrapper_calls, stats=dict(step.stats),
+               repeatable=repeatable, loose=loose, times=times,
+               profile_window=dict(seconds=time.perf_counter() - t0, **win),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(phase="compiled_train", **res)
+    if not win["profiler_device_events"]:
+        print("chip_smoke: compiled_train: the profiler window recorded no device activity",
+              file=sys.stderr)
+    step.clear()
+    return dict(train=launches)
 
 
 def phase_kernels(torch, dev, params, cam, cfg, label="garden"):
@@ -1416,13 +1742,32 @@ def phase_trainer_rehearsal(torch, dev):
     out_dir = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    summary = trainer.main([*REHEARSAL, "--device", dev.type,
-                            "--out", str(out_dir / "rehearsal.ply")])
+    alloc0 = allocator(torch)
+    summary, launches = traced_launches(torch, lambda: trainer.main(
+        [*REHEARSAL, "--device", dev.type, "--out", str(out_dir / "rehearsal.ply")]))
+    alloc1 = allocator(torch)
     losses = [v for _, v in summary["losses"]]
     if len(losses) < 2 or not losses[-1] < losses[0]:
         fail(f"trainer rehearsal: the loss did not fall: {losses}")
+    check_trainer_compiled("trainer rehearsal", summary, launches)
     log(phase="trainer_rehearsal", seconds=time.perf_counter() - t0, losses=losses,
-        final_eval=summary["evals"][-1], step=summary["step"])
+        final_eval=summary["evals"][-1], step=summary["step"], compiled=summary["compiled"],
+        launches_traced=launches, allocator=[alloc0, alloc1])
+
+
+TRAIN_KERNELS = ("emission", "forward_blend", "backward_blend", "segment_reduce")
+
+
+def check_trainer_compiled(what, summary, launches):
+    """The trainer's steps ran as graph replays: a capture, and a replay for
+    every step (overflowed retries add more); and each kernel of the step
+    ran at least once a step on the device (``launches``, counted from the
+    run's trace)."""
+    stats, steps = summary["compiled"], summary["step"]
+    if not stats or stats["captures"] < 1 or stats["replays"] < steps:
+        fail(f"{what}: the steps were not graph replays: {stats}, {steps} steps")
+    if any(launches[k] < steps for k in TRAIN_KERNELS):
+        fail(f"{what}: a kernel launched fewer times than the {steps} steps: {launches}")
 
 
 def phase_threefry(torch, dev, n=GARDEN["n"]):
@@ -1754,22 +2099,26 @@ def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DAT
         return out
 
     err = io.StringIO()
+    alloc0 = allocator(torch)
     t0 = time.perf_counter()
     prng.normal = recorded_normal
     try:
         with contextlib.redirect_stderr(err):
-            summary = trainer.main(["--data", str(root), *argv, "--ckpt", str(ckpt),
-                                    "--out", str(ply), "--device", dev.type])
+            summary, traced = traced_launches(torch, lambda: trainer.main(
+                ["--data", str(root), *argv, "--ckpt", str(ckpt), "--out", str(ply),
+                 "--device", dev.type]))
     finally:
         prng.normal = prng_normal
     seconds["trainer"] = time.perf_counter() - t0
+    alloc1 = allocator(torch)
     capacity = int(argv[argv.index("--capacity") + 1])
     if not draws or len(draws) % 2 or set(draws) != {((capacity, 3), dev.type)}:
         fail(f"data_training: the densify rounds did not draw their [{capacity}, 3] split "
              f"noise pairs on {dev.type}: {draws}")
-    launches = dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES,
-                    backward_blend=rasterize.BACKWARD_LAUNCHES,
-                    segment_reduce=segment_reduce.LAUNCHES)
+    wrapper_calls = dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES,
+                         backward_blend=rasterize.BACKWARD_LAUNCHES,
+                         segment_reduce=segment_reduce.LAUNCHES)
+    launches = {k: traced[k] for k in TRAIN_KERNELS}
     sys.stderr.write(err.getvalue())
     lines = [json.loads(ln) for ln in err.getvalue().splitlines() if ln.startswith("{")]
     steps = summary["step"]
@@ -1786,9 +2135,8 @@ def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DAT
         fail(f"data_training: the evals are not on the held-out views: {evals}")
     if not evals[-1]["final"] or not evals[-1]["psnr"] > evals[0]["psnr"]:
         fail(f"data_training: held-out PSNR did not rise: {[e['psnr'] for e in evals]}")
-    if dev.type == "cuda" and any(v < steps for v in launches.values()):
-        fail(f"data_training: a kernel launched fewer times than the {steps} steps: "
-             f"{launches}")
+    check_trainer_compiled("data_training", summary, launches)
+    compiled = summary["compiled"]
 
     # 4. The checkpoint: the JAX package's layout at this capacity; against
     # the trainer's final state, and one step from each, bit for bit.
@@ -1885,9 +2233,10 @@ def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DAT
     log(phase="data_training", width=w, height=h, views=capture["views"],
         held_out=evals[0]["views"], points=capture["points"], steps=steps, losses=losses,
         evals=[{k: e[k] for k in ("eval_step", "psnr", "ssim", "views", "overflow")}
-               for e in evals], ply_gaussians=n_ply, launches=launches,
+               for e in evals], ply_gaussians=n_ply, launches_traced=launches,
         densify_draws=len(draws), alive=[ln["alive"] for ln in lines if "alive" in ln],
-        nan_mean=raised, checkpoint_leaves=len(specs), densify_round=round_, seconds=seconds)
+        nan_mean=raised, checkpoint_leaves=len(specs), densify_round=round_, seconds=seconds,
+        compiled=compiled, wrapper_calls=wrapper_calls, allocator=[alloc0, alloc1])
     return launches
 
 
@@ -1903,8 +2252,11 @@ DRYRUN_RANKS, BENCH_STRIPS = 4, 8
 def phase_session(torch, dev, params, cfg):
     """The interactive session at the garden shapes: ``run_interactive``
     on scripted keys, the launch counters reset just before and read just
-    after; the pose against the motion constants, frame 0 and a frame after
-    a resize bit-equal to ``render_auto`` at the same camera."""
+    after (the profiled frames run the wrappers, the drawn frames replay the
+    session's graph); the pose against the motion constants, frame 0 and a
+    frame after a resize bit-equal to ``render_auto`` at the same camera;
+    then the keys again at the new size in a profiler window, emission and
+    forward counted from the trace at least once a frame."""
     import io
 
     import numpy as np
@@ -1936,16 +2288,16 @@ def phase_session(torch, dev, params, cfg):
     text = io.StringIO()
     t0 = time.perf_counter()
     torch.cuda.synchronize()
+    alloc0 = allocator(torch)
     emission.LAUNCHES = rasterize.FORWARD_LAUNCHES = 0
     stats = run_interactive(sess, keys=SESSION_KEYS, out=text, cols=96, profile_every=2)
-    launches = dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES)
+    alloc1 = allocator(torch)
+    wrapper_calls = dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES)
     seconds = time.perf_counter() - t0
     out = text.getvalue()
     n_frames = len([k for k in SESSION_KEYS if k not in (None, "q")])
     if stats["frames"] != n_frames or len(frames) + len(stages) != n_frames:
         fail(f"session: {stats['frames']} frames, expected {n_frames}")
-    if min(launches.values()) < n_frames:
-        fail(f"session: a kernel was not launched every frame ({launches})")
     # Three moves (w, w, d) from the identity rotation, then two rotations.
     want = np.array(SESSION_EYE) + MOVE_STEP * np.array([1.0, 0.0, -2.0])
     if np.abs(np.asarray(stats["position"]) - want).max() > 1e-9:
@@ -1972,12 +2324,21 @@ def phase_session(torch, dev, params, cfg):
                 reference(pose_r, SESSION_RESIZE))
     frame_ms = [float(line.split()[2]) for line in out.splitlines()
                 if line.startswith("frame ")]
+    sess.draw, sess.draw_profiled = draw, draw_profiled  # the keys again, at the new size
+    again, traced = traced_launches(torch, lambda: run_interactive(
+        sess, keys=SESSION_KEYS, out=io.StringIO(), cols=96, profile_every=2))
+    launches = dict(emission=traced["emission"], forward_blend=traced["forward_blend"])
+    if again["frames"] != n_frames or min(launches.values()) < n_frames:
+        fail(f"session: a kernel was not launched every frame ({launches}, "
+             f"{again['frames']} frames)")
     log(phase="session", width=w, height=h, keys=SESSION_KEYS, frames=stats["frames"],
         seconds=seconds, frame_ms=frame_ms, ema_ms=stats["ema_ms"],
         stage_ms=[st[2] for _, st in stages], position=stats["position"],
         num_instances=[int(a["num_instances"]) for _, (_, a) in frames],
         capacity=sess.config.render.instance_capacity(params.num_gaussians),
-        launches=launches, frame0="bit-equal to render_auto",
+        launches_traced=launches, wrapper_calls=wrapper_calls,
+        allocator=[alloc0, alloc1], capture_s=sess._render.stats["capture_s"],
+        frame0="bit-equal to render_auto",
         resized=dict(size=SESSION_RESIZE, frame="bit-equal to render_auto"))
     return launches
 
@@ -2063,13 +2424,63 @@ JAX_CAPACITY = dict(garden=(4_397_056, "BENCH_r05.json"),
                     bicycle=(12_484_608, "docs/PROFILE.md:176"))
 
 
+def compiled_headline(torch, dev, conf, params, cam, cfg, reset, counters) -> dict:
+    """The headline step compiled (``bench.headline.run`` times it so)
+    against the eager step at one configuration: its outputs bit for bit
+    where two eager calls are, else within rtol 1e-4; one replayed step in
+    a profiler window, every kernel counted from the trace at least once,
+    with the wrappers' counters reset just before (a replay runs no
+    wrapper: they must not move); eager and compiled times in turns, the
+    capture seconds; at garden a profiler window over three compiled steps.
+    Logged as the phase ``compiled_headline``."""
+    import functools
+
+    from tpusplat_torch.bench import headline, profile_detail
+    from tpusplat_torch.compiled import compile_step
+
+    trainable, alive = headline.split_trainable(params)
+    args = (trainable, alive, cam, cfg)
+    step = compile_step(headline.step, static_argnames=("cfg",))
+    names = ("means_grad_sum", "num_instances", "capacity_overflow")
+    e1, e2 = (dict(zip(names, headline.step(*args))) for _ in range(2))
+    repeatable = {k: torch.equal(e1[k], e2[k]) for k in names}
+    got = dict(zip(names, step(*args)))  # the capture and its first replay
+    torch.cuda.synchronize()
+    reset()
+    out, traced = traced_launches(torch, lambda: step(*args))
+    replayed = dict(zip(names, out))
+    moved = counters()
+    launches = {k: traced[k] for k in TRAIN_KERNELS}
+    if min(launches.values()) < 1:
+        fail(f"compiled headline {conf}: a kernel not launched in a replayed step {launches}")
+    if any(moved.values()):
+        fail(f"compiled headline {conf}: a wrapper ran in a replayed step ({moved})")
+    loose = {}
+    for what, outs in (("first call", got), ("replay", replayed)):
+        loose.update(hold_to_eager(f"compiled headline {conf} {what}", outs, e1, repeatable,
+                                   0.0, 1e-4))
+    times = timed_turns(torch, dict(eager=functools.partial(headline.step, *args),
+                                    compiled=functools.partial(step, *args)))
+    res = dict(config=conf, repeatable=repeatable, loose=loose,
+               launches_replay_traced=launches,
+               stats=dict(step.stats), times=times)
+    if conf == "garden":
+        res["profile_window"] = profile_detail.profile_window(
+            functools.partial(step, *args), dev, steps=3)
+    log(phase="compiled_headline", **res)
+    step.clear()
+    return res
+
+
 def phase_headline(torch, dev):
     """``bench.headline`` in process at each of ``HEADLINE_CONFIGS`` (garden
     with every line, the others with the fwd+bwd line), the launch counters
-    reset just before each run and read just after; then one headline step
-    with the counters reset (its launches, and its loss: a black image has
-    loss 0). Fails on overflow, a value not finite and positive, a black
-    image, or a kernel of the step not launched in a run. At garden, a
+    reset just before each run and read just after (the harness's compiled
+    steps run the wrappers in their warm-up and captured calls only; their
+    replays are counted from a trace in ``compiled_headline``); then one
+    eager headline step with the counters reset (its launches, and its loss:
+    a black image has loss 0). Fails on overflow, a value not finite and
+    positive, a black image, or a kernel of the step not launched in a run. At garden, a
     profiler window over three headline steps (the device's idle share and
     its top kernels); at bicycle, every kernel of the step held against its
     plain version on bicycle's inputs (``phase_kernels``)."""
@@ -2095,7 +2506,7 @@ def phase_headline(torch, dev):
         setup_s = time.perf_counter() - t0
         reset()
         lines = headline.run(conf, dev, iters=HEADLINE_ITERS, inputs=inputs)
-        launches = counters()
+        wrapper_calls = counters()
         peak = torch.cuda.max_memory_allocated()
         reset()
         loss, grads, aux = headline.loss_and_grads(*headline.split_trainable(params), cam, cfg)
@@ -2116,13 +2527,13 @@ def phase_headline(torch, dev):
             fail(f"headline {conf}: loss {float(loss)}: the image is black or not finite")
         if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
             fail(f"headline {conf}: a gradient not finite")
-        if min(launches.values()) < 1 or min(step_launches.values()) < 1:
-            fail(f"headline {conf}: a kernel not launched ({launches}; a step "
+        if min(wrapper_calls.values()) < 1 or min(step_launches.values()) < 1:
+            fail(f"headline {conf}: a kernel not launched ({wrapper_calls}; a step "
                  f"{step_launches})")
         res = dict(config=conf, n=n, width=cam.width, height=cam.height, capacity=capacity,
                    num_instances=int(aux["num_instances"]), setup_s=setup_s,
                    seconds=time.perf_counter() - t0, peak_mem_bytes=peak,
-                   peak_mem_gib=peak / 2**30, loss=float(loss), launches=launches,
+                   peak_mem_gib=peak / 2**30, loss=float(loss), wrapper_calls=wrapper_calls,
                    launches_step=step_launches,
                    mpix={ln["metric"]: ln["value"] for ln in lines if "metric" in ln})
         if conf in JAX_CAPACITY:
@@ -2132,6 +2543,8 @@ def phase_headline(torch, dev):
         log(phase="headline", **res)
         out[conf] = res
         del grads, aux
+        res["compiled"] = compiled_headline(torch, dev, conf, params, cam, cfg, reset,
+                                            counters)
         if conf == "garden":
             t0 = time.perf_counter()
             trainable, alive = headline.split_trainable(params)
@@ -2240,6 +2653,7 @@ def run(torch, dev, kind: str, smi: str) -> int:
     with torch.no_grad():
         cfg, serving = phase_garden_serving(torch, dev, params, cams, cfg)
     cfg, training = phase_garden_training(torch, dev, params, cams, cfg)
+    compiled = phase_compiled(torch, dev, params, cams, cfg)
     timed = phase_kernels(torch, dev, params, cams[0], cfg)
     phase_trainer_rehearsal(torch, dev)
     phase_threefry(torch, dev)
@@ -2274,15 +2688,24 @@ def run(torch, dev, kind: str, smi: str) -> int:
     kernels = []
     for name, (source, replaces) in sources.items():
         t = timed[name]
-        # The serving and training kernels count over the garden training
-        # steps (and over the data_training trainer run); the two sharded
-        # modes over the emulated strip's path.
+        # The serving and training kernels count, by their wrappers' counters,
+        # over the eager garden training steps; the two sharded modes over the
+        # emulated strip's path. The *_traced counts are device launches
+        # counted by name in a profiler trace of graph replays (serving frames,
+        # the data_training trainer run, session frames, three compiled train
+        # steps, one compiled headline step), which run no wrapper;
+        # wrapper_calls_headline counts the harness run's wrapper calls (the
+        # warm-up and captured calls of its compiled steps).
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=training[name] if name in training else t["launches"],
-            launches_serving=serving.get(name), launches_data_training=data.get(name),
-            launches_session=session.get(name),
-            launches_headline=headline["garden"]["launches"].get(name),
+            launches_serving_traced=serving.get(name),
+            launches_data_training_traced=data.get(name),
+            launches_session_traced=session.get(name),
+            launches_compiled_train_traced=compiled["train"].get(name),
+            launches_compiled_headline_step_traced=headline["garden"]["compiled"][
+                "launches_replay_traced"].get(name),
+            wrapper_calls_headline=headline["garden"]["wrapper_calls"].get(name),
             launches_headline_step=headline["garden"]["launches_step"].get(name),
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],

@@ -16,6 +16,13 @@ target) and its gradient with respect to the five trainable fields by
 instance count and the capacity overflow; the forward-only step returns the
 image's sum in the first place.
 
+**The compiled step.** ``bench.py`` times ``jax.jit(step)``; the harness
+times :func:`tpusplat_torch.compiled.compile_step` of ``step`` (and of
+``forward_step``), ``cfg`` static: on the card a CUDA graph captured at the
+warm call and replayed by every later one. The warm call's line reads
+"capture+first run", as ``bench.py``'s reads "compile+first run". To time
+the eager step, call :func:`measure` on ``step`` itself.
+
 **The time** is ``bench.py``'s too: one warm call, then the host clock over
 a run of ``max(1, iters // 4)`` calls and over one of ``iters + max(1,
 iters // 4)``, each ended by a host read of its last result, and ``dt =
@@ -63,6 +70,7 @@ import torch
 
 from tpusplat_torch.bench._timing import clock, emit, require_card, time_ms
 from tpusplat_torch.bench.profile_detail import CONFIGS, scene
+from tpusplat_torch.compiled import compile_step
 from tpusplat_torch.render import render_stages
 from tpusplat_torch.train.step import merge_trainable, split_trainable
 
@@ -120,7 +128,8 @@ def measure(fn, device, iters: int, what: str) -> dict:
     out = fn()
     out[0].item()
     first_s = time.perf_counter() - t0
-    log(f"{what}: first run {first_s:.2f}s instances={int(out[1])} overflow={int(out[2])}")
+    log(f"{what}: capture+first run {first_s:.2f}s instances={int(out[1])} "
+        f"overflow={int(out[2])}")
     if int(out[2]) > 0:
         log("WARNING: capacity overflow: raise capacity_mult")
     host_ms = differenced_ms(fn, iters)
@@ -161,7 +170,12 @@ def run(conf="garden", device="cuda", iters: int = 5, fwd_only: bool = False,
     log(f"headline: device={device} config={name} n={n} {w}x{h} sh={cfg.sh_degree} "
         f"capacity={capacity} mode={mode} iters={iters}")
     trainable, alive = split_trainable(params)
-    bound = functools.partial(forward_step if fwd_only else step, trainable, alive, cam, cfg)
+
+    def compiled(fn):  # bench.py's jax.jit(step), cfg static, bound to its inputs
+        return functools.partial(compile_step(fn, static_argnames=("cfg",)), trainable,
+                                 alive, cam, cfg)
+
+    bound = compiled(forward_step if fwd_only else step)
     lines = []
 
     def detail(what, m):
@@ -175,7 +189,7 @@ def run(conf="garden", device="cuda", iters: int = 5, fwd_only: bool = False,
     log(f"{mode}: {m['host_ms']:.2f} ms/frame (events {m['event_ms']:.2f}) -> "
         f"{mpix:.1f} Mpix/s")
     if name == "garden" and not fwd_only:
-        viewer = functools.partial(forward_step, trainable, alive, cam, cfg)
+        viewer = compiled(forward_step)
         mv = measure(viewer, device, iters, "viewer")
         detail("viewer", mv)
         mpix_v = mpix_frame / (mv["host_ms"] * 1e-3)

@@ -2,8 +2,12 @@
 preprocess -> bin and sort -> gather and blend, the analogue of the
 reference's ``Renderer`` (``src/Renderer.cpp:366-426``).
 
-PyTorch runs eagerly, so there is no jit: each stage routes by the device
-of its tensors (CPU: plain PyTorch; CUDA: the hand-written kernels).
+Each stage routes by the device of its tensors (CPU: plain PyTorch; CUDA:
+the hand-written kernels). :func:`render_stages` runs eagerly;
+:func:`render_auto`, where the JAX package jits ``render_stages`` with
+``cfg`` static, replays a :func:`compile_render`, a CUDA graph of it
+captured once per configuration and frame size (:mod:`tpusplat_torch.compiled`),
+which its caller owns.
 ``cfg.debug_checks`` adds the validation counters of
 :mod:`tpusplat_torch.ops.validate` to ``aux["debug"]``.
 """
@@ -16,6 +20,7 @@ import warnings
 
 import torch
 
+from tpusplat_torch.compiled import compile_step
 from tpusplat_torch.config import RenderConfig
 from tpusplat_torch.ops import validate
 from tpusplat_torch.ops.binning import bin_and_sort
@@ -46,6 +51,16 @@ def render_stages(params: GaussianParams, camera: Camera, cfg: RenderConfig):
     binned = bin_and_sort(pg, camera.width, camera.height, cfg)
     img, aux = rasterize(pg, binned, camera.width, camera.height, cfg)
     return img, _finish_aux(aux, params, pg, binned, img, cfg)
+
+
+def compile_render():
+    """:func:`render_stages` as ``jax.jit(render_stages, static_argnames="cfg")``
+    runs it: on the card a graph replay per frame, captured anew for a new
+    cfg (a regrow), scene size or frame size; the two most recent keys are
+    kept. The caller owns it, and with it the graphs' pools and static
+    buffers (a copy of the scene's parameters): keep one across the frames
+    of a viewer, a session or a trainer's evals, and let go of it with them."""
+    return compile_step(render_stages, static_argnames=("cfg",))
 
 
 def render_profiled(params: GaussianParams, camera: Camera, cfg: RenderConfig):
@@ -97,16 +112,26 @@ def render_auto(
     cfg: RenderConfig | None = None,
     max_regrows: int = 4,
     growth: float = 1.3,
+    compiled=None,
 ):
     """Render with automatic instance-capacity recovery: on overflow, grow
     the capacity and render the frame again, so the frame returned is exact
     (the reference's sort-buffer regrow, ``src/Renderer.cpp:541-563``).
 
+    Each render replays ``compiled``, the caller's :func:`compile_render`
+    kept across frames; without one, a compiled render is made for this
+    call and freed when it returns. A grown capacity is a new cfg, so it
+    captures anew, as a jitted render re-traces. The overflow counter is
+    read on the host after each replay. The image and ``aux`` are the
+    caller's own copies.
+
     Returns (img, aux, cfg): keep the returned cfg for later frames."""
     if cfg is None:
         cfg = RenderConfig()
+    if compiled is None:
+        compiled = compile_render()
     for _ in range(max_regrows + 1):
-        img, aux = render_stages(params, camera, cfg)
+        img, aux = compiled(params, camera, cfg)
         overflow = int(aux["capacity_overflow"])
         if overflow <= 0 or max_regrows <= 0:
             break

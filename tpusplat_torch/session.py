@@ -23,7 +23,7 @@ import torch
 from tpusplat_torch.camera import make_camera, quat_to_rotmat
 from tpusplat_torch.config import RenderConfig
 from tpusplat_torch.io.ply import load_ply
-from tpusplat_torch.render import render_auto, render_profiled
+from tpusplat_torch.render import compile_render, render_auto, render_profiled
 from tpusplat_torch.types import GaussianParams, resolve_device
 
 ROTATE_RAD_PER_PX = 0.005
@@ -86,6 +86,7 @@ class Session:
         self.params = params
         self.position = np.zeros(3)
         self.rotation = np.array([1.0, 0.0, 0.0, 0.0])  # (w,x,y,z)
+        self._render = compile_render()  # the session's render graphs
         self._initialized = False
 
     # -- lifecycle (3dgs.h:27-41) --
@@ -108,10 +109,12 @@ class Session:
         On instance-capacity overflow the frame is rendered again with a
         grown capacity (``render_auto``, the reference's sort-buffer growth
         and retry, ``src/Renderer.cpp:541-563``); the grown config is kept
-        for later frames.
+        for later frames. Frames replay the session's own render graph
+        (``compile_render``), freed with the session.
         """
         assert self._initialized, "call initialize() first"
-        img, aux, grown = render_auto(self.params, self.camera(), self.config.render)
+        img, aux, grown = render_auto(self.params, self.camera(), self.config.render,
+                                      compiled=self._render)
         if grown is not self.config.render:
             self.config = dataclasses.replace(self.config, render=grown)
         return img, aux
@@ -132,9 +135,11 @@ class Session:
 
         The analogue of the reference's swapchain recreation on resize
         (``src/Renderer.cpp:102-117``: recreate the swapchain, reallocate the
-        tile-boundary buffer for the new grid, rebuild the pipeline). The
-        port runs eagerly, so there is nothing to rebuild: the next
-        ``draw()`` makes the camera, tile grid and buffers of the new size.
+        tile-boundary buffer for the new grid, rebuild the pipeline). A new
+        frame size is a new key of the session's compiled render, so the
+        next ``draw()`` captures the render graph anew at the new size, as
+        the reference rebuilds its pipeline (the two most recent sizes are
+        kept).
         """
         self.config = dataclasses.replace(self.config, width=int(width), height=int(height))
 

@@ -10,8 +10,10 @@ reading the overflow counters on the host: an overflowed step is gated on
 the device with ``torch.where``, and the caller polls the counters one step
 late (``tpusplat_torch/trainer.py``).
 
-PyTorch runs eagerly, so there is no jit; :func:`train_step` is functional
-(it returns a new state and leaves the old one intact, as in JAX).
+:func:`train_step` runs eagerly and is functional (it returns a new state
+and leaves the old one intact, as in JAX). :func:`compile_train_step` is
+its counterpart of the JAX package's ``jax.jit``: a CUDA graph replayed per
+step, the state donated (:mod:`tpusplat_torch.compiled`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import dataclasses
 
 import torch
 
+from tpusplat_torch.compiled import compile_step
 from tpusplat_torch.config import RenderConfig
 from tpusplat_torch.render import render_stages
 from tpusplat_torch.train.losses import gs_loss
@@ -200,3 +203,13 @@ def train_step(state: TrainState, camera: Camera, target: torch.Tensor, cfg: Ren
     loss, aux, leaves = step_forward(state, camera, target, cfg, ssim_weight)
     grads = step_backward(loss, leaves)
     return apply_gradients(state, loss, aux, grads, optimizer)
+
+
+def compile_train_step():
+    """:func:`train_step` as the JAX package's ``jax.jit`` with ``cfg``,
+    ``optimizer`` and ``ssim_weight`` static, and ``state`` donated: on the
+    card one graph replay a step, captured anew for a new cfg (a regrow).
+    The state it returns lives in the graph's buffers and is updated in
+    place by the next step that is given it; the metrics are copies."""
+    return compile_step(train_step, static_argnames=("cfg", "optimizer", "ssim_weight"),
+                        donate={"state": 0})

@@ -37,6 +37,14 @@ capacity, not a shard's.
 The eval's frames are exact: it regrows the capacity as ``render_auto``
 does, where ``apps/train.py`` evaluates a truncated frame until the
 training steps have regrown it.
+
+Without ``--mesh`` each step replays a CUDA graph of ``train_step``
+(``train.step.compile_train_step``, the counterpart of ``apps/train.py``'s
+jitted step), captured anew when a regrow changes the config; the state
+stays in the graph's buffers from step to step, and a state that densify or
+an opacity reset made is copied in at the next step. The eval's frames
+replay a render graph that the run owns (``render.compile_render``). The
+sharded steps run eagerly.
 """
 
 from __future__ import annotations
@@ -52,8 +60,9 @@ import time
 def main(argv=None) -> dict:
     """Run the trainer. Returns a summary: the logged ``losses`` as
     (step, loss) pairs, the ``evals`` (unrounded), the final ``step``, the
-    final ``state`` (this rank's shard under ``--mesh``) and the render
-    ``cfg`` its capacity regrows reached."""
+    final ``state`` (this rank's shard under ``--mesh``), the render
+    ``cfg`` its capacity regrows reached and, without ``--mesh``, the
+    compiled step's ``stats`` (captures, replays, copies) as ``compiled``."""
     p = argparse.ArgumentParser("tpusplat_torch.trainer", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--data", default=None,
@@ -138,12 +147,13 @@ def _train(args, dev, mesh) -> dict:
     from tpusplat_torch.io.synthetic import random_scene
     from tpusplat_torch.parallel import sharded
     from tpusplat_torch.parallel.collectives import all_reduce_
-    from tpusplat_torch.render import render_auto
+    from tpusplat_torch.render import compile_render, render_auto
     from tpusplat_torch.train import prng
     from tpusplat_torch.train.checkpoint import save_checkpoint
     from tpusplat_torch.train.densify import DensifyConfig, densify_and_prune, reset_opacity
     from tpusplat_torch.train.losses import psnr, ssim
-    from tpusplat_torch.train.step import create_train_state, make_optimizer, train_step
+    from tpusplat_torch.train.step import (compile_train_step, create_train_state,
+                                           make_optimizer)
     from tpusplat_torch.train.watchdog import Watchdog
 
     lead = mesh is None or mesh.rank == 0
@@ -194,6 +204,7 @@ def _train(args, dev, mesh) -> dict:
 
     optimizer = make_optimizer(scene_extent=scene_extent, means_lr_max_steps=args.steps)
     state = create_train_state(init)
+    train_step = compile_train_step() if mesh is None else None
     if mesh is not None:
         state = sharded.shard_state(state, mesh)
         shard_step = (sharded.sharded_train_step_overlap if args.overlap
@@ -253,6 +264,8 @@ def _train(args, dev, mesh) -> dict:
     def whole_params():
         return state.params if mesh is None else sharded.gather_params(state.params, mesh)
 
+    eval_render = compile_render()  # the evals' render graphs, freed with the run
+
     def run_eval(step_no, final=False):
         params = whole_params()  # every rank gathers; rank 0 renders
         if not lead:
@@ -264,7 +277,8 @@ def _train(args, dev, mesh) -> dict:
         ps, ss, overflow = [], [], 0
         with torch.no_grad():
             for cam_e, tgt_e in zip(eval_cams, eval_targets):
-                img, aux, eval_cfg = render_auto(params, cam_e, eval_cfg)
+                img, aux, eval_cfg = render_auto(params, cam_e, eval_cfg,
+                                                 compiled=eval_render)
                 overflow += int(aux["capacity_overflow"])
                 ps.append(float(psnr(img, tgt_e)))
                 ss.append(float(ssim(img, tgt_e, crop_border=True)))
@@ -333,7 +347,8 @@ def _train(args, dev, mesh) -> dict:
         if lead:
             save_checkpoint(args.ckpt, whole)
             print(f"checkpointed {args.ckpt}", file=sys.stderr)
-    summary.update(step=int(state.step), state=state, cfg=cfg)
+    summary.update(step=int(state.step), state=state, cfg=cfg,
+                   compiled=None if train_step is None else dict(train_step.stats))
     return summary
 
 

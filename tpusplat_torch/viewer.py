@@ -81,6 +81,7 @@ def _view(args, device, mesh):
 
     from tpusplat_torch import RenderConfig, load_ply, random_scene, render_auto
     from tpusplat_torch.camera import look_at_camera
+    from tpusplat_torch.render import compile_render
     from tpusplat_torch.io.dataset import save_png
 
     lead = mesh is None or mesh.rank == 0
@@ -101,6 +102,7 @@ def _view(args, device, mesh):
         return _interactive(args, params, cfg, device)
 
     frames = max(args.orbit, 1)
+    render = compile_render()  # the orbit's render graphs, replayed frame to frame
     center = np.asarray(args.target)
     radius_vec = np.asarray(args.camera) - center
     for i in range(frames):
@@ -115,7 +117,7 @@ def _view(args, device, mesh):
         t0 = time.time()
         with torch.no_grad():
             if mesh is None:
-                img, aux, cfg = render_auto(params, cam, cfg)
+                img, aux, cfg = render_auto(params, cam, cfg, compiled=render)
                 extra = dict(instances=int(aux["num_instances"]),
                              overflow=int(aux["capacity_overflow"]))
             else:
