@@ -32,10 +32,11 @@ Phases, one output line each; any failure exits non-zero:
      capacity from a preprocess probe x1.05; ``render_auto`` replaying
      the phase's compiled render (captured at the warm-up frame) on a
      3-camera orbit, timed, with the launch counters reset just before and
-     read just after (a replay runs no wrapper); the orbit again in a
-     profiler window a frame, emission and forward counted from the trace
-     at least once a frame; ``render_profiled`` twice, with the cudaMalloc
-     calls each made;
+     read just after (a replay runs no wrapper); ``render_profiled`` once
+     before the capture and twice after it; the orbit again in a profiler
+     window a frame, emission and forward counted from the trace at least
+     once a frame; ``render_profiled`` once more; the cudaMalloc calls each
+     ``render_profiled`` made;
   6. garden training: the eager ``train_step`` at the same shapes against
      renders of a second random scene, one warm-up step and three timed
      steps with the regrow retry, counters reset just before and read just
@@ -86,7 +87,9 @@ Phases, one output line each; any failure exits non-zero:
      two held-out views, overflow 0 in every logged line, each kernel
      launched at least once a step by the trace's count, every densify
      round's split
-     noise drawn on the card at [1.4M, 3]); the checkpoint in the JAX
+     noise drawn on the card at [1.4M, 3], the round a graph replay: its
+     only draws those of its capture); the capture's 16 renders hold one
+     compiled render (a capture, and one a regrow); the checkpoint in the JAX
      package's layout (exactly ``leaf_0`` ... ``leaf_25`` and
      ``__treedef__``, the treedef the port's constant, every leaf JAX's
      shape and dtype at 1.4M slots and SH3), loaded onto the card equal to
@@ -100,7 +103,12 @@ Phases, one output line each; any failure exits non-zero:
      than free slots, clones, splits and prunes) on the card against the
      same round on the CPU given the card's draws (alive and the granted
      slots bit-equal, the rest within 2e-6, a differing clone-or-split
-     decision only within 4 ulp of its limit), its ms; the seconds of each
+     decision only within 4 ulp of its limit), its ms; then the compiled
+     round (``compile_densify``) with two keys as key tensors, a capture
+     and a replay, each bit-equal to the eager round from the same key in
+     every state tensor, eager and compiled ms in turns, a profiler window
+     over one of each, the round's aten kernels and bytes counted on meta
+     tensors, the allocator before and after; the seconds of each
      part (the checkpoint's save and load among them);
  11. sharded_emulated: one strip of the tile-sharded path at the garden
      shapes (tile = 4, 17 tile rows a strip, strip_gauss_mult 2.0: strip
@@ -135,7 +143,8 @@ Phases, one output line each; any failure exits non-zero:
      left up, profiled every second frame, the launch counters reset just
      before and read just after: the position within 1e-9 of the motion
      constants' result, frame 0 and a frame after ``resize(1280, 720)``
-     bit-equal to ``render_auto`` at the same camera, the status and live
+     bit-equal to ``render_auto`` at the same camera (one compiled render
+     for both reference frames: a capture a resolution), the status and live
      stage lines in the overlay; the frame ms, the EMA and the stage ms;
      then the keys again in a profiler window (emission and forward every
      frame, counted from the trace: the drawn frames replay a graph);
@@ -163,7 +172,8 @@ Phases, one output line each; any failure exits non-zero:
      step with the counters reset; each configuration's settled capacity
      (garden's and bicycle's beside the JAX package's recorded ones), peak
      memory and lines; fails on overflow, a time or rate not finite and
-     positive, a black image or a kernel of the step not launched. The
+     positive, a black image or a kernel of the step not launched; the
+     allocator before and after each configuration's run. The
      harness times the compiled step; beside it (``compiled_headline``) the
      compiled step against the eager one at each configuration: outputs bit
      for bit where two eager calls are, one replayed step in a profiler
@@ -780,17 +790,29 @@ def phase_grad_6k(torch, dev):
 
 def phase_garden_serving(torch, dev, params, cams, cfg):
     """render_auto on the orbit, replaying the phase's own compiled render:
-    the warm-up frame captures it, then three timed frames with the
-    wrappers' counters reset just before and read just after (a replay runs
-    no wrapper: they stay at 0); then the orbit again, a profiler window a
+    an eager ``render_profiled`` frame, then the warm-up frame captures the
+    render, then three timed frames with the wrappers' counters reset just
+    before and read just after (a replay runs no wrapper: they stay at 0);
+    ``render_profiled`` twice; then the orbit again, a profiler window a
     frame, each kernel's launches counted from the trace (emission and
-    forward at least once a frame). Then ``render_profiled`` (eager) twice,
-    with the cudaMalloc calls each made."""
+    forward at least once a frame), and ``render_profiled`` once more. Each
+    ``render_profiled`` with the cudaMalloc calls it made: the frame before
+    the capture fills the main stream's cache, so the first one after it
+    shows what the capture left there."""
     from tpusplat_torch.ops import emission, rasterize
     from tpusplat_torch.render import compile_render, render_auto, render_profiled
 
     w, h = cams[0].width, cams[0].height
     alloc0 = allocator(torch)
+    profiled = []
+
+    def profiled_frame(when):
+        allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        _, _, stage_ms = render_profiled(params, cams[0], cfg)
+        allocs = torch.cuda.memory_stats().get("num_device_alloc", 0) - allocs
+        profiled.append(dict(when=when, stage_ms=stage_ms, device_allocs=allocs))
+
+    profiled_frame("before the capture")
     render = compile_render()
     render_auto(params, cams[0], cfg, compiled=render)  # warm-up frame: the capture
     torch.cuda.synchronize()
@@ -812,6 +834,9 @@ def phase_garden_serving(torch, dev, params, cams, cfg):
         if float(img.max()) <= 0.0:
             fail(f"garden frame {i}: image all black")
     wrapper_calls = dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES)
+    del img, aux  # as the frame before the capture, the frames hold no block
+    for when in ("after the capture", "after the capture, again"):
+        profiled_frame(when)  # the graph still held, as a viewer holds it between frames
     launches = dict(emission=0, forward_blend=0)
     for i, cam in enumerate(cams):
         _, traced = traced_launches(torch, lambda cam=cam: render_auto(params, cam, cfg,
@@ -820,16 +845,11 @@ def phase_garden_serving(torch, dev, params, cams, cfg):
             fail(f"garden frame {i}: a kernel was not launched ({traced})")
         for k in launches:
             launches[k] += traced[k]
-    profiled = []
-    for _ in range(2):  # the graph still held, as a viewer holds it between frames
-        allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
-        _, _, stage_ms = render_profiled(params, cams[0], cfg)
-        profiled.append(dict(stage_ms=stage_ms, device_allocs=torch.cuda.memory_stats().get(
-            "num_device_alloc", 0) - allocs))
+    profiled_frame("after the profiler windows")
     del render
     log(phase="garden_serving", n=params.num_gaussians, width=w, height=h,
         capacity=cfg.instance_capacity(params.num_gaussians), frames_ms=frames_ms,
-        num_instances=instances, stage_ms=profiled[0]["stage_ms"], profiled=profiled,
+        num_instances=instances, stage_ms=profiled[1]["stage_ms"], profiled=profiled,
         launches_traced=launches, wrapper_calls=wrapper_calls,
         allocator=[alloc0, allocator(torch)])
     return cfg, launches
@@ -1887,6 +1907,43 @@ def jax_leaf_specs(n, sh_coeffs):
 # 0.005), and scene_extent 1.0, so that the clone/split limit of 0.01
 # falls inside the garden scales (0.002-0.02).
 DENSIFY_ROUND = dict(alive=1_000_000, seed=11, faint=0.02, scene_extent=1.0)
+# Timed calls a reading of the eager and compiled rounds in turns.
+DENSIFY_ITERS = 4
+# aten ops that launch no kernel: views and metadata.
+NO_KERNEL = {"view", "_unsafe_view", "detach", "select", "slice", "expand", "unsqueeze",
+             "squeeze", "alias", "as_strided", "t", "permute", "transpose", "reshape",
+             "split", "unbind", "lift_fresh", "empty", "new_empty", "empty_like"}
+
+
+def launch_traffic(torch, fn, *args) -> dict:
+    """The kernels that ``fn(*args)`` launches, by aten op, and the bytes
+    they move (each op's tensor inputs read once and its outputs written
+    once), counted by running ``fn`` on meta tensors of ``args``' shapes
+    (tensors, dicts and dataclasses of them): nothing is computed or
+    allocated."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    def nbytes(x):
+        if isinstance(x, torch.Tensor):
+            return x.numel() * x.element_size()
+        if isinstance(x, (list, tuple)):
+            return sum(nbytes(v) for v in x)
+        return 0
+
+    ops, moved = collections.Counter(), []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name not in NO_KERNEL:
+                ops[name] += 1
+                moved.append(nbytes(args) + nbytes(list((kwargs or {}).values())) + nbytes(out))
+            return out
+
+    with Count():
+        fn(*(_to(a, "meta") for a in args))
+    return dict(launches=sum(ops.values()), bytes=sum(moved), top_ops=dict(ops.most_common(8)))
 
 
 def densify_round(torch, dev, params, spec=DENSIFY_ROUND):
@@ -1896,9 +1953,17 @@ def densify_round(torch, dev, params, spec=DENSIFY_ROUND):
     equal to the ranking's contract: the j-th candidate by average gradient
     takes the j-th free slot); the parameters and moments within 2e-6,
     apart from Gaussians whose clone-or-split decision differs, which must
-    lie within 4 ulp of the limit. Returns the round's ms on the card (CUDA
-    events, draws included and given), the counts of clones, splits and
-    prunes, and the decisions that differ."""
+    lie within 4 ulp of the limit. Then the compiled round
+    (``compile_densify``, as ``apps/train.py`` jits it) with two keys, each
+    a key tensor: a capture, then a replay with no new capture, each bit
+    for bit the eager round from the same key in every state tensor; the
+    eager and compiled rounds timed in turns (host-differenced and CUDA
+    events), the capture's seconds, a profiler window over one call of each
+    (launches by name, the device's idle share), the kernels and bytes of
+    the round's aten ops (``launch_traffic``), and the allocator before and
+    after. Returns the eager round's ms on the card (CUDA events, draws
+    included and given), the counts of clones, splits and prunes, the
+    decisions that differ, and the compiled round's readings."""
     import numpy as np
 
     from tpusplat_torch.train import prng
@@ -1985,11 +2050,66 @@ def densify_round(torch, dev, params, spec=DENSIFY_ROUND):
         errs[k] = check_close(f"densify_round: {k}", a[keep].float(), v[keep].float(),
                               atol=2e-6)
     clones = int((target >= 0).sum()) - int(split_w.sum())
+    eager = state_tensors(got)
+    del got, want, state
+    compiled = compiled_round(torch, dev, card, (key, prng.fold_in(prng.key(0), 8)), dcfg,
+                              extent, eager)
     return dict(slots=n, alive_before=int(alive.sum()), candidates=int(cand.sum()),
                 free=len(free), granted=len(granted), clones=clones, splits=int(split_w.sum()),
                 prunes=int(((alive | filled) & ~alive_w).sum()), alive_after=int(alive_w.sum()),
                 decisions_differ=len(differ), max_abs_err=max(errs.values()), ms=ms,
-                ms_noise_given=ms_given)
+                ms_noise_given=ms_given, compiled=compiled)
+
+
+def compiled_round(torch, dev, card, keys, dcfg, extent, eager_first) -> dict:
+    """``densify_round``'s compiled part: the round compiled, called with
+    each of ``keys`` as a key tensor, against the eager round from the same
+    host key (``eager_first``: its state tensors for the first key)."""
+    from tpusplat_torch.bench.profile_detail import profile_window
+    from tpusplat_torch.train import prng
+    from tpusplat_torch.train.checkpoint import state_tensors
+    from tpusplat_torch.train.densify import compile_densify, densify_and_prune
+
+    alloc0 = allocator(torch)
+    round_ = compile_densify()
+    key_tensors = [prng.key_tensor(k, dev) for k in keys]
+    outputs = []
+    for i, (k, kt) in enumerate(zip(keys, key_tensors)):
+        eager = eager_first if i == 0 else state_tensors(
+            densify_and_prune(card, k, dcfg, extent))
+        got = state_tensors(round_(card, kt, dcfg, extent))
+        for name, v in got.items():
+            check_equal(f"densify_round: compiled round, key {i}: {name}", v, eager[name])
+        outputs.append(got["params.means"])
+        del eager, got
+    stats = dict(round_.stats)
+    if stats["captures"] != 1 or stats["replays"] != len(keys):
+        fail(f"densify_round: compiled round {stats}: expected one capture, a replay a key")
+    if torch.equal(*outputs):
+        fail("densify_round: the two keys split to the same means: the key was baked in")
+    del outputs
+
+    def eager_round():
+        return densify_and_prune(card, keys[1], dcfg, extent)
+
+    def compiled_call():
+        return round_(card, key_tensors[1], dcfg, extent)
+
+    times = timed_turns(torch, dict(eager=eager_round, compiled=compiled_call),
+                        iters=DENSIFY_ITERS)
+    windows = {name: profile_window(fn, dev, steps=1)
+               for name, fn in (("eager", eager_round), ("compiled", compiled_call))}
+    if dev.type == "cuda" and not windows["compiled"]["profiler_device_events"]:
+        fail("densify_round: the profiler saw no device activity in a compiled round")
+    traffic = launch_traffic(torch, lambda st, k: densify_and_prune(st, k, dcfg, extent), card,
+                             key_tensors[1])
+    state_bytes = sum(v.numel() * v.element_size() for v in state_tensors(card).values())
+    alloc1 = allocator(torch)
+    round_.clear()
+    return dict(stats=stats, bit_equal=True, times=times, windows=windows,
+                ops=traffic, ops_bound_ms=traffic["bytes"] / PEAK_BYTES * 1e3,
+                state_bound_ms=2 * state_bytes / PEAK_BYTES * 1e3, state_bytes=state_bytes,
+                allocator=[alloc0, alloc1])
 
 
 def _to(x, dev):
@@ -2017,12 +2137,14 @@ def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DAT
 
     from tpusplat_torch import trainer
     from tpusplat_torch.camera import look_at_camera
+    from tpusplat_torch.compiled import WARMUP_CALLS
     from tpusplat_torch.config import SH_C0
     from tpusplat_torch.io import colmap, native_loader
     from tpusplat_torch.io.dataset import read_image
     from tpusplat_torch.io.ply import load_ply
     from tpusplat_torch.ops import emission, rasterize, segment_reduce
-    from tpusplat_torch.render import render, render_auto, render_batch, render_stages
+    from tpusplat_torch.render import (compile_render, render, render_auto, render_batch,
+                                       render_stages)
     from tpusplat_torch.train import prng
     from tpusplat_torch.train import step as tstep
     from tpusplat_torch.train.checkpoint import (JAX_TREEDEF, load_checkpoint, save_checkpoint,
@@ -2045,19 +2167,27 @@ def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DAT
     root.mkdir(parents=True)
     seconds = {}
 
-    # 1. The capture: the garden scene's renders from an orbit, and SfM
-    # points drawn from its means, coloured from their SH DC.
+    # 1. The capture: the garden scene's renders from an orbit, one compiled
+    # render held across the views, and SfM points drawn from its means,
+    # coloured from their SH DC.
     w, h = cams[0].width, cams[0].height
     views = orbit_cameras(look_at_camera, [0.0, 0.5, 9.0], [0.0, 0.0, 0.0], w, h, 60.0,
                           capture["views"], dev)
     t0 = time.perf_counter()
     with torch.no_grad():
-        renders, gcfg = [], cfg
+        renders, gcfg, capture_render, regrows = [], cfg, compile_render(), 0
         for cam in views:
-            img, aux, gcfg = render_auto(params, cam, gcfg)
+            img, aux, grown = render_auto(params, cam, gcfg, compiled=capture_render)
+            regrows += grown is not gcfg
+            gcfg = grown
             if int(aux["capacity_overflow"]):
                 fail("data_training: a capture render overflowed")
             renders.append(img.clamp(0.0, 1.0))
+    capture_stats = dict(capture_render.stats, regrows=regrows)
+    del capture_render
+    if capture_stats["captures"] > 1 + regrows:
+        fail(f"data_training: the capture renders captured more than once and once a regrow: "
+             f"{capture_stats}")
     pick = np.random.default_rng(0).choice(params.num_gaussians, capture["points"],
                                            replace=False)
     xyz = params.means[torch.from_numpy(pick).to(dev)].double().cpu().numpy()
@@ -2136,7 +2266,13 @@ def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DAT
     if not evals[-1]["final"] or not evals[-1]["psnr"] > evals[0]["psnr"]:
         fail(f"data_training: held-out PSNR did not rise: {[e['psnr'] for e in evals]}")
     check_trainer_compiled("data_training", summary, launches)
-    compiled = summary["compiled"]
+    compiled, compiled_densify = summary["compiled"], summary["compiled_densify"]
+    # Each capture of the round draws its pair in its warm-up calls and in
+    # the captured one; a replay runs no Python, so it records no draw.
+    if dev.type == "cuda" and (compiled_densify["captures"] < 1 or len(draws) != 2 * (
+            WARMUP_CALLS + 1) * compiled_densify["captures"]):
+        fail(f"data_training: the densify rounds were not graph replays: {compiled_densify}, "
+             f"{len(draws)} draws recorded")
 
     # 4. The checkpoint: the JAX package's layout at this capacity; against
     # the trainer's final state, and one step from each, bit for bit.
@@ -2236,7 +2372,8 @@ def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DAT
                for e in evals], ply_gaussians=n_ply, launches_traced=launches,
         densify_draws=len(draws), alive=[ln["alive"] for ln in lines if "alive" in ln],
         nan_mean=raised, checkpoint_leaves=len(specs), densify_round=round_, seconds=seconds,
-        compiled=compiled, wrapper_calls=wrapper_calls, allocator=[alloc0, alloc1])
+        compiled=compiled, compiled_densify=compiled_densify, capture_render=capture_stats,
+        wrapper_calls=wrapper_calls, allocator=[alloc0, alloc1])
     return launches
 
 
@@ -2264,7 +2401,7 @@ def phase_session(torch, dev, params, cfg):
     from tpusplat_torch.camera import make_camera
     from tpusplat_torch.interactive import run_interactive
     from tpusplat_torch.ops import emission, rasterize
-    from tpusplat_torch.render import render_auto
+    from tpusplat_torch.render import compile_render, render_auto
     from tpusplat_torch.session import MOVE_STEP, Session, SessionConfig
 
     w, h = GARDEN["width"], GARDEN["height"]
@@ -2305,11 +2442,13 @@ def phase_session(torch, dev, params, cfg):
     if "(live)" not in out or f"frame {n_frames} " not in out or "instances" not in out:
         fail("session: the overlay lacks the status line or the live stage line")
 
+    ref_render = compile_render()  # the reference frames' own, one capture a resolution
+
     def reference(pose, size):
         pos, rot, rcfg = pose
         cam = make_camera(pos, rot, *size, fov_deg=60.0, device=dev)
         with torch.no_grad():
-            return render_auto(params, cam, rcfg)[0]
+            return render_auto(params, cam, rcfg, compiled=ref_render)[0]
 
     (pose0, (img0, aux0)) = frames[0]
     check_equal("session frame 0 against render_auto", img0, reference(pose0, (w, h)))
@@ -2322,6 +2461,11 @@ def phase_session(torch, dev, params, cfg):
         fail(f"session: the resized frame is {tuple(img_r.shape)}")
     check_equal("session frame after resize against render_auto", img_r,
                 reference(pose_r, SESSION_RESIZE))
+    reference_stats = dict(ref_render.stats)
+    del ref_render
+    if reference_stats["captures"] > 2:
+        fail(f"session: the reference frames captured more than once a resolution: "
+             f"{reference_stats}")
     frame_ms = [float(line.split()[2]) for line in out.splitlines()
                 if line.startswith("frame ")]
     sess.draw, sess.draw_profiled = draw, draw_profiled  # the keys again, at the new size
@@ -2338,6 +2482,7 @@ def phase_session(torch, dev, params, cfg):
         capacity=sess.config.render.instance_capacity(params.num_gaussians),
         launches_traced=launches, wrapper_calls=wrapper_calls,
         allocator=[alloc0, alloc1], capture_s=sess._render.stats["capture_s"],
+        reference_render=reference_stats,
         frame0="bit-equal to render_auto",
         resized=dict(size=SESSION_RESIZE, frame="bit-equal to render_auto"))
     return launches
@@ -2505,9 +2650,11 @@ def phase_headline(torch, dev):
         capacity = cfg.instance_capacity(n)
         setup_s = time.perf_counter() - t0
         reset()
+        alloc0 = allocator(torch)
         lines = headline.run(conf, dev, iters=HEADLINE_ITERS, inputs=inputs)
         wrapper_calls = counters()
         peak = torch.cuda.max_memory_allocated()
+        alloc = [alloc0, allocator(torch)]
         reset()
         loss, grads, aux = headline.loss_and_grads(*headline.split_trainable(params), cam, cfg)
         torch.cuda.synchronize()
@@ -2533,7 +2680,8 @@ def phase_headline(torch, dev):
         res = dict(config=conf, n=n, width=cam.width, height=cam.height, capacity=capacity,
                    num_instances=int(aux["num_instances"]), setup_s=setup_s,
                    seconds=time.perf_counter() - t0, peak_mem_bytes=peak,
-                   peak_mem_gib=peak / 2**30, loss=float(loss), wrapper_calls=wrapper_calls,
+                   peak_mem_gib=peak / 2**30, allocator=alloc, loss=float(loss),
+                   wrapper_calls=wrapper_calls,
                    launches_step=step_launches,
                    mpix={ln["metric"]: ln["value"] for ln in lines if "metric" in ln})
         if conf in JAX_CAPACITY:

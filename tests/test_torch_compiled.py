@@ -31,9 +31,10 @@ from tpusplat.types import to_numpy
 from tpusplat_torch import convert
 from tpusplat_torch.compiled import compile_step, flatten
 from tpusplat_torch.config import regrow
-from tpusplat_torch.ops import rasterize
+from tpusplat_torch.ops import rasterize, segment_reduce
 from tpusplat_torch.render import compile_render, render_auto, render_stages
-from tpusplat_torch.train import checkpoint
+from tpusplat_torch.train import checkpoint, prng
+from tpusplat_torch.train import densify as tdensify
 from tpusplat_torch.train import step as tstep
 
 torch.set_num_threads(2)
@@ -345,14 +346,34 @@ def test_the_session_owns_its_render_and_a_resize_captures_anew():
     np.testing.assert_array_equal(b.draw()[0].numpy(), img.numpy())
 
 
-class _NoHostReads(TorchDispatchMode):
-    """Refuses the aten ops that read a tensor's value on the host."""
+def _called_from(code) -> bool:
+    frame = sys._getframe(1)
+    while frame is not None and frame.f_code is not code:
+        frame = frame.f_back
+    return frame is not None
 
-    REFUSED = ("_local_scalar_dense", "item", "nonzero")
+
+class _NoHostReads(TorchDispatchMode):
+    """Refuses the aten ops that read a tensor's value on the host; an index
+    by a boolean mask, whose kernel reads the mask's count of True
+    (``nonzero``) below this mode, where the mode does not see it, but for
+    the plain segment reduce's mask (``_index_add``), which runs only on the
+    CPU, where the segment-reduce kernel is absent; and a tensor made from
+    host values (``torch.tensor``), a copy from the host."""
+
+    REFUSED = ("_local_scalar_dense", "item", "nonzero", "masked_select")
+    INDEXING = ("index", "index_put", "index_put_", "_index_put_impl_")
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func.overloadpacket.__name__ in self.REFUSED:
+        name = func.overloadpacket.__name__
+        if name in self.REFUSED:
             raise AssertionError(f"host read inside a compiled step: {func}")
+        if name == "lift_fresh":
+            raise AssertionError(f"copy from the host inside a compiled step: {func}")
+        if name in self.INDEXING and any(
+                isinstance(i, torch.Tensor) and i.dtype in (torch.bool, torch.uint8)
+                for i in args[1]) and not _called_from(segment_reduce._index_add.__code__):
+            raise AssertionError(f"host read inside a compiled step: {func} by a boolean mask")
         return func(*args, **(kwargs or {}))
 
 
@@ -373,8 +394,9 @@ def _refuse_tolist(monkeypatch):
 def test_no_host_read_inside_the_compiled_steps(inputs, monkeypatch):
     """The compiled bodies (a capture and a replay each of render_stages and
     train_step) under a dispatch mode that refuses ``_local_scalar_dense``,
-    ``item`` and ``nonzero``, with ``Tensor.tolist`` refused too; and the
-    mode does catch a read."""
+    ``item``, ``nonzero``, ``masked_select``, an index by a boolean mask and
+    a tensor made from host values, with ``Tensor.tolist`` refused too; and
+    the mode does catch a read."""
     params, cam, jcfg, target = inputs
     tp, tc = _port(params, cam)
     cfg = _port_cfg(jcfg)
@@ -394,3 +416,31 @@ def test_no_host_read_inside_the_compiled_steps(inputs, monkeypatch):
     with pytest.raises(AssertionError, match="tolist"):
         state.step.tolist()
     assert render.stats["replays"] == step.stats["replays"] == 2
+
+
+def test_no_host_read_inside_the_compiled_densify_round(inputs, monkeypatch):
+    """The compiled densify round, its keys tensors, under the same dispatch
+    mode with ``Tensor.tolist`` refused: a capture and a replay with another
+    key, each granting slots; and the mode does catch a read, an index by a
+    boolean mask and a copy from the host."""
+    params, cam, _, _ = inputs
+    state = tstep.create_train_state(_port(params, cam)[0])
+    gen = torch.Generator().manual_seed(0)
+    state.grad_accum = 4e-4 * torch.rand(N, generator=gen)
+    state.grad_count = torch.ones(N)
+    round_ = tdensify.compile_densify()
+    dcfg = tdensify.DensifyConfig()
+    keys = [prng.key_tensor(k, "cpu") for k in prng.split(prng.key(0), 2)]
+    _refuse_tolist(monkeypatch)
+    alive = []
+    with _NoHostReads():
+        for k in keys:
+            alive.append(round_(state, k, dcfg, 4.0).params.alive)
+        with pytest.raises(AssertionError, match="host read"):
+            int(alive[0].sum())
+        with pytest.raises(AssertionError, match="boolean mask"):
+            state.params.means[alive[0]]
+        with pytest.raises(AssertionError, match="copy from the host"):
+            torch.tensor(dcfg.split_scale_div)
+    assert round_.stats["captures"] == 1 and round_.stats["replays"] == 2
+    assert all(int(a[ALIVE:].sum()) > 0 for a in alive)  # both rounds granted slots

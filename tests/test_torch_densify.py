@@ -1,14 +1,16 @@
 """The port's densification (tpusplat_torch/train/densify.py) on the CPU:
 densify_and_prune against the JAX densify_and_prune on the same state, fed
 the JAX package's own split draws and, with no draws given, drawing them
-itself from the same key (tpusplat_torch/train/prng.py); and the five
-behavioural tests of tests/test_densify.py."""
+itself from the same key (tpusplat_torch/train/prng.py); the compiled
+round against the JAX package's jitted one; and the five behavioural tests
+of tests/test_densify.py."""
 
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tpusplat.io.synthetic import random_scene as jax_random_scene
@@ -20,6 +22,7 @@ from tpusplat_torch.io.synthetic import random_scene
 from tpusplat_torch.train import densify as td
 from tpusplat_torch.train import prng
 from tpusplat_torch.train import step as tstep
+from tpusplat_torch.train.checkpoint import state_tensors
 
 torch.set_num_threads(2)
 
@@ -121,6 +124,48 @@ def test_densify_draws_as_jax_from_the_same_key():
     moved = np.abs(out_t.params.means.numpy() - ts.params.means.numpy()).max(axis=1) > 1e-4
     assert moved[:70].sum() >= 2, "no split source moved"
     _check_against_jax(out_t, out_j, means_atol=1e-5)
+
+
+@pytest.fixture
+def one_thread():
+    """One CPU thread for a comparison of two runs bit for bit (the CPU
+    libraries split a reduction by the threads they get)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_compiled_round_replays_a_new_key_as_jax_jits_it(one_thread):
+    """``compile_densify`` on the first two keys of apps/train.py's chain,
+    each a key tensor: one capture, then a replay for the second key. Each
+    round against ``jax.jit(densify_and_prune, static_argnames=("dcfg",
+    "scene_extent"))`` from the same key at the bounds above, log_scales bit
+    for bit (the split's f32 log(1.6) is the constant XLA folds), and
+    against the eager port round from the host key bit for bit; the
+    caller's state unchanged (not donated)."""
+    js, ts = _states()
+    before = {k: v.clone() for k, v in state_tensors(ts).items()}
+    jround = jax.jit(jd.densify_and_prune, static_argnames=("dcfg", "scene_extent"))
+    round_ = td.compile_densify()
+    dcfg_j, dcfg_t = jd.DensifyConfig(**DCFG), td.DensifyConfig(**DCFG)
+    jk, tk, means = jax.random.key(0), prng.key(0), []
+    for _ in range(2):
+        jk, jsub = jax.random.split(jk)
+        tk, tsub = prng.split(tk)
+        out_t = round_(ts, prng.key_tensor(tsub, "cpu"), dcfg_t, 2.0)
+        out_j = jround(js, jsub, dcfg_j, 2.0)
+        _check_against_jax(out_t, out_j, means_atol=1e-5)
+        np.testing.assert_array_equal(out_t.params.log_scales.numpy(),
+                                      np.asarray(out_j.params.log_scales))
+        eager = state_tensors(td.densify_and_prune(ts, tsub, dcfg_t, 2.0))
+        for k, v in state_tensors(out_t).items():
+            np.testing.assert_array_equal(v.numpy(), eager[k].numpy(), err_msg=k)
+        means.append(out_t.params.means)
+    assert not torch.equal(*means)  # the second key drew other splits
+    assert round_.stats["captures"] == 1 and round_.stats["replays"] == 2
+    for k, v in state_tensors(ts).items():
+        assert torch.equal(v, before[k]), k
 
 
 def test_clone_into_free_slots():

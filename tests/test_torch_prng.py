@@ -54,6 +54,24 @@ def test_bits_uniform_and_normal_match_jax(shape):
     np.testing.assert_array_equal(got.numpy(), np.asarray(jax.random.normal(jk, shape)))
 
 
+def test_a_key_tensor_draws_as_the_same_key_held_as_ints():
+    """fold_in, random_bits and normal of a key tensor (the form a compiled
+    densify round takes) equal those of the same key as a pair of ints, bit
+    for bit, and jax.random's."""
+    k = prng.split(prng.split(prng.key(0))[0])[1]
+    kt = prng.key_tensor(k, "cpu")
+    assert kt.dtype == torch.int64 and kt.shape == (2,)
+    folded = prng.fold_in(kt, 1)
+    assert isinstance(folded, torch.Tensor) and tuple(folded.tolist()) == prng.fold_in(k, 1)
+    for a, b in ((k, kt), (prng.fold_in(k, 1), folded)):
+        np.testing.assert_array_equal(prng.random_bits(b, (1001, 3), "cpu").numpy(),
+                                      prng.random_bits(a, (1001, 3), "cpu").numpy())
+        got = prng.normal(b, (1001, 3), "cpu").numpy()
+        np.testing.assert_array_equal(got, prng.normal(a, (1001, 3), "cpu").numpy())
+        want = np.asarray(jax.random.normal(_jax_key(a), (1001, 3)))
+        np.testing.assert_array_equal(got, want)
+
+
 def test_normal_over_every_uniform_matches_jax():
     """All 2**23 uniforms the normal can draw (it reads only bits >> 9)
     against ``sqrt(2) * lax.erf_inv`` on the same u: 0 of 8,388,608 values

@@ -174,6 +174,8 @@ def test_trainer_cli_tiny_run_on_cpu(tmp_path, capsys):
     assert [s for s, _ in summary["losses"]] == [3, 6]
     assert all(np.isfinite(v) for _, v in summary["losses"])
     assert summary["evals"][-1]["final"] and summary["step"] >= 6
+    rounds = summary["compiled_densify"]
+    assert rounds["captures"] == rounds["replays"] == 1  # the one round at step 3
     assert any("psnr" in ln for ln in lines)
     assert load_ply(out, device="cpu").num_gaussians > 0
 

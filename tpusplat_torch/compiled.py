@@ -14,10 +14,15 @@ resize"). :func:`compile_step` gives the port the same contract on the card:
   whether gradients are enabled.
 - **A new key is captured** at its first call: the step runs on copies of
   the inputs (its static input buffers), twice on a side stream to warm up
-  (cuDNN's plans, the kernels' libraries and attributes), then once inside
-  ``torch.cuda.graph`` into a private memory pool. ``torch.cuda.graph``
-  empties the caching allocator's cache first, so the next eager call
-  after a capture allocates its blocks from the device again.
+  (cuDNN's plans, the kernels' libraries and attributes), then once more on
+  that stream between ``CUDAGraph.capture_begin`` and ``capture_end``, into
+  a private memory pool. Nothing empties the caching allocator, as
+  ``torch.cuda.graph`` would: the blocks that eager code cached stay
+  cached, and the next eager call finds them, as a ``jax.jit`` compile
+  frees no live buffer. The side stream is one for each device, shared by
+  every compiled step, so that each capture's warm-ups reuse the blocks
+  the last ones freed (the allocator keeps a freed block for the stream
+  that used it).
 - **Every call** copies each tensor input into its static buffer and
   replays the graph. An input is not copied when it is its static buffer
   (the same ``data_ptr``), or when it is the very tensor last copied into
@@ -68,6 +73,13 @@ import torch
 
 KEEP = 2  # entries a compiled step keeps
 WARMUP_CALLS = 2  # eager calls on a side stream before a capture
+_SIDE_STREAMS: dict = {}  # device index -> the stream every capture there warms up on
+
+
+def _side_stream(device: torch.device):
+    if device.index not in _SIDE_STREAMS:  # a tensor's device: its index is set
+        _SIDE_STREAMS[device.index] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device.index]
 
 
 def flatten(x, leaves: list):
@@ -189,15 +201,18 @@ class _Entry:
 
     def _capture_graph(self):
         with torch.cuda.device(self.device):
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
+            main, side = torch.cuda.current_stream(self.device), _side_stream(self.device)
+            side.wait_stream(main)
+            graph = torch.cuda.CUDAGraph()
             with torch.cuda.stream(side):
                 for _ in range(WARMUP_CALLS):
                     self.fn(**self.args())
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                out = self.body()
+                graph.capture_begin(pool=torch.cuda.graph_pool_handle())
+                try:
+                    out = self.body()
+                finally:
+                    graph.capture_end()
+            main.wait_stream(side)
             self.graph = graph
             return out
 

@@ -119,11 +119,14 @@ def render_auto(
     (the reference's sort-buffer regrow, ``src/Renderer.cpp:541-563``).
 
     Each render replays ``compiled``, the caller's :func:`compile_render`
-    kept across frames; without one, a compiled render is made for this
-    call and freed when it returns. A grown capacity is a new cfg, so it
-    captures anew, as a jitted render re-traces. The overflow counter is
-    read on the host after each replay. The image and ``aux`` are the
-    caller's own copies.
+    kept across frames. Without one, the call makes its own and frees it on
+    return: every such call pays a capture (two warm-up renders, the
+    captured one and a copy of the scene's parameters) and a free of the
+    graph's pool, where a replay costs one frame, so a loop of frames
+    holds one :func:`compile_render` across its calls. A grown capacity is
+    a new cfg, so it captures anew, as a jitted render re-traces. The
+    overflow counter is read on the host after each replay. The image and
+    ``aux`` are the caller's own copies.
 
     Returns (img, aux, cfg): keep the returned cfg for later frames."""
     if cfg is None:

@@ -5,7 +5,11 @@ The Gaussian count never changes: the parameter tensors have a fixed
 capacity N and an ``alive`` mask; dead slots render as fully transparent.
 Densification grants free slots to the candidates with the largest average
 positional gradient, pruning frees them, and the Adam moments of every
-touched slot are zeroed. Shapes stay fixed and nothing is read on the host.
+touched slot are zeroed. Shapes stay fixed, nothing is read on the host and
+nothing is copied from it, as under ``jax.jit``: every scatter writes all N
+rows, a row that is not granted to index N, a drop row, as the JAX round's
+``.at[target].set(..., mode="drop")`` does. :func:`compile_densify` is the
+round as ``apps/train.py`` jits it.
 
 Recipe (upstream 3DGS semantics, as in the JAX package):
   * candidates: average positional-gradient norm >= grad_threshold, alive;
@@ -24,9 +28,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import struct
 
 import torch
 
+from tpusplat_torch.compiled import compile_step
 from tpusplat_torch.ops.activations import normalize_quat
 from tpusplat_torch.train import prng
 from tpusplat_torch.train.step import TrainState
@@ -61,11 +67,26 @@ def _zero_rows(moments: dict, mask: torch.Tensor) -> dict:
             for k, v in moments.items()}
 
 
-def _scatter(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """A copy of ``dst`` with rows ``idx`` set to ``src`` (unique indices)."""
-    out = dst.clone()
-    out[idx] = src
-    return out
+def _scatter(dst: torch.Tensor, target: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``dst.at[target].set(src, mode="drop")``: a copy of ``dst`` with row
+    ``target[i]`` set to ``src[i]``, where ``target[i] == n`` (the row count)
+    drops. The copy has one more row, the drop row, which takes every
+    dropped write and is cut off; the other targets are unique, so each kept
+    row is written once at most and the result does not depend on the
+    order of the writes."""
+    n = dst.shape[0]
+    out = dst.new_empty((n + 1, *dst.shape[1:]))
+    out[:n] = dst
+    return out.index_copy_(0, target, src)[:n]
+
+
+def _log_f32(x: float) -> float:
+    """The f32 log of ``x`` rounded to f32, as a Python float: the constant
+    that XLA folds ``jnp.log(x)`` to in the jitted round. Computed on the
+    host, so the round copies nothing from it."""
+    def f32(v):
+        return struct.unpack("<f", struct.pack("<f", v))[0]
+    return f32(math.log(f32(x)))
 
 
 @torch.no_grad()
@@ -77,9 +98,10 @@ def densify_and_prune(
     noise: torch.Tensor | None = None,
     noise2: torch.Tensor | None = None,
 ) -> TrainState:
-    """One densification round. ``noise``/``noise2`` ([N, 3]) are the two
-    standard-normal split draws; when not given, they are
-    ``jax.random.normal`` of ``key`` and of ``fold_in(key, 1)``, on the
+    """One densification round. ``key`` is a host key or a key tensor
+    (``prng.key_tensor``) on the state's device. ``noise``/``noise2``
+    ([N, 3]) are the two standard-normal split draws; when not given, they
+    are ``jax.random.normal`` of ``key`` and of ``fold_in(key, 1)``, on the
     state's device."""
     params = state.params
     n = params.num_gaussians
@@ -104,9 +126,10 @@ def densify_and_prune(
     rank[order] = torch.arange(n, device=dev)
     granted = cand & (rank < n_free)
 
-    # The j-th granted candidate (by rank) gets the j-th free slot (ascending).
+    # The j-th granted candidate (by rank) gets the j-th free slot (ascending);
+    # every other slot targets n, the drop row.
     free_list = torch.argsort((~free).to(torch.uint8), stable=True)  # free slot ids first
-    target = free_list[torch.clamp_max(rank, n - 1)]
+    target = torch.where(granted, free_list[torch.clamp_max(rank, n - 1)], n)
 
     # New-slot values: a clone copies its source; a split samples from the
     # Gaussian and shrinks it.
@@ -117,20 +140,19 @@ def densify_and_prune(
         noise2 = prng.normal(prng.fold_in(key, 1), (n, 3), dev).to(dt)
     sample1 = params.means + _rot_apply(params.quats, noise * scales)
     sample2 = params.means + _rot_apply(params.quats, noise2 * scales)
-    split_log_scales = params.log_scales - torch.log(
-        torch.tensor(dcfg.split_scale_div, dtype=dt, device=dev))
+    split_log_scales = params.log_scales - _log_f32(dcfg.split_scale_div)
 
     new_means = torch.where(split_m[:, None], sample1, params.means)
     new_log_scales = torch.where(split_m[:, None], split_log_scales, params.log_scales)
 
-    # Scatter the new Gaussians into their granted slots.
-    dst = target[granted]
-    means = _scatter(params.means, dst, new_means[granted])
-    log_scales = _scatter(params.log_scales, dst, new_log_scales[granted])
-    quats = _scatter(params.quats, dst, params.quats[granted])
-    opacities = _scatter(params.opacities, dst, params.opacities[granted])
-    sh = _scatter(params.sh, dst, params.sh[granted])
-    alive_new = _scatter(alive, dst, torch.ones_like(dst, dtype=torch.bool))
+    # Scatter the new Gaussians into their granted slots (index n drops).
+    means = _scatter(params.means, target, new_means)
+    log_scales = _scatter(params.log_scales, target, new_log_scales)
+    quats = _scatter(params.quats, target, params.quats)
+    opacities = _scatter(params.opacities, target, params.opacities)
+    sh = _scatter(params.sh, target, params.sh)
+    ones = torch.ones_like(alive)
+    alive_new = _scatter(alive, target, ones)
 
     # Split sources move to their second sample and shrink in place.
     src_split = split_m & granted
@@ -150,7 +172,7 @@ def densify_and_prune(
                                 opacities=opacities, sh=sh, alive=alive_new)
 
     # Fresh Adam moments for touched or dead slots.
-    touched = _scatter(src_split | ~alive_new, dst, torch.ones_like(dst, dtype=torch.bool))
+    touched = _scatter(src_split | ~alive_new, target, ones)
     return TrainState(
         params=new_params,
         mu=_zero_rows(state.mu, touched),
@@ -163,12 +185,28 @@ def densify_and_prune(
     )
 
 
+def _round(state: TrainState, key: torch.Tensor, dcfg: DensifyConfig,
+           scene_extent: float) -> TrainState:
+    # The module's densify_and_prune, looked up at each call.
+    return densify_and_prune(state, key, dcfg, scene_extent)
+
+
+def compile_densify():
+    """:func:`densify_and_prune` as ``apps/train.py`` jits it
+    (``jax.jit(densify_and_prune, static_argnames=("dcfg", "scene_extent"))``):
+    captured once per config, extent and state shapes on the card and
+    replayed, the key a tensor argument (``prng.key_tensor``), so each round
+    with a new key replays. The state is not donated, as ``apps/train.py``
+    donates none: the caller's state stays as it was, and the round's result
+    is the caller's own copy."""
+    return compile_step(_round, static_argnames=("dcfg", "scene_extent"))
+
+
 @torch.no_grad()
 def reset_opacity(state: TrainState, ceiling: float = 0.01) -> TrainState:
     """Clamp all opacities to at most ``ceiling`` (upstream 3DGS does this
     every 3000 steps to let pruning reconsider saturated Gaussians)."""
-    op = state.params.opacities
-    raw_ceiling = torch.log(torch.tensor(ceiling / (1.0 - ceiling), dtype=op.dtype,
-                                         device=op.device))
-    params = dataclasses.replace(state.params, opacities=torch.minimum(op, raw_ceiling))
+    raw_ceiling = _log_f32(ceiling / (1.0 - ceiling))
+    params = dataclasses.replace(state.params,
+                                 opacities=torch.clamp_max(state.params.opacities, raw_ceiling))
     return dataclasses.replace(state, params=params)

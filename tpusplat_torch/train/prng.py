@@ -3,7 +3,13 @@ standard normals that ``jax.random`` gives ``tpusplat/train/densify.py``
 (the split noise) and ``apps/train.py`` (its key chain), bit for bit.
 
 A key is a pair of 32-bit integers ``(k1, k2)``, held as Python ints; there
-is no global state. The forms are those of jax 0.9's defaults
+is no global state. The draws (``fold_in``, ``random_bits``, ``normal``)
+also take the pair as a device tensor (:func:`key_tensor`: int64, shape
+[2]), which a CUDA graph reads at each replay where it would bake Python
+ints in as constants; the draws of a tensor key are those of the same key
+held as ints, bit for bit. The chain of keys (``key``, ``split``) stays on
+the host, as ``apps/train.py``'s does. The forms are those of jax 0.9's
+defaults
 (``jax_default_prng_impl=threefry2x32``, ``jax_threefry_partitionable=True``,
 32-bit mode):
 
@@ -58,9 +64,10 @@ def _rotl(v, r: int):
     return ((v << r) | (v >> (32 - r))) & MASK
 
 
-def threefry2x32(k: Key, x0, x1):
-    """The threefry-2x32 hash of counter words ``(x0, x1)`` under key ``k``:
-    Python ints or int64 tensors holding values below 2**32."""
+def threefry2x32(k, x0, x1):
+    """The threefry-2x32 hash of counter words ``(x0, x1)`` under key ``k``
+    (a pair of ints or a key tensor): Python ints or int64 tensors holding
+    values below 2**32."""
     ks = (k[0], k[1], k[0] ^ k[1] ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & MASK
     x1 = (x1 + ks[1]) & MASK
@@ -83,14 +90,21 @@ def split(k: Key, num: int = 2) -> list[Key]:
     return [threefry2x32(k, i >> 32, i & MASK) for i in range(num)]
 
 
-def fold_in(k: Key, data: int) -> Key:
-    """``jax.random.fold_in(k, data)``."""
-    return threefry2x32(k, 0, int(data) & MASK)
+def key_tensor(k: Key, device) -> torch.Tensor:
+    """The host key ``k`` as a key tensor on ``device``: int64, shape [2]."""
+    return torch.tensor(k, dtype=torch.int64, device=device)
 
 
-def random_bits(k: Key, shape, device) -> torch.Tensor:
+def fold_in(k, data: int):
+    """``jax.random.fold_in(k, data)``: a pair of ints for a pair of ints, a
+    key tensor for a key tensor."""
+    out = threefry2x32(k, 0, int(data) & MASK)
+    return torch.stack(out) if isinstance(k, torch.Tensor) else out
+
+
+def random_bits(k, shape, device) -> torch.Tensor:
     """32 random bits per element, ``jax.random.bits(k, shape, uint32)``, as
-    an int64 tensor of ``shape`` on ``device``."""
+    an int64 tensor of ``shape`` on ``device`` (that of a key tensor)."""
     n = math.prod(shape)
     i = torch.arange(n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(k, i >> 32, i & MASK)
@@ -216,6 +230,6 @@ def normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return out.reshape(bits.shape)
 
 
-def normal(k: Key, shape, device) -> torch.Tensor:
+def normal(k, shape, device) -> torch.Tensor:
     """``jax.random.normal(k, shape)`` in float32 on ``device``."""
     return normal_from_bits(random_bits(k, tuple(shape), device))

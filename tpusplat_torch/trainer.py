@@ -42,9 +42,12 @@ Without ``--mesh`` each step replays a CUDA graph of ``train_step``
 (``train.step.compile_train_step``, the counterpart of ``apps/train.py``'s
 jitted step), captured anew when a regrow changes the config; the state
 stays in the graph's buffers from step to step, and a state that densify or
-an opacity reset made is copied in at the next step. The eval's frames
-replay a render graph that the run owns (``render.compile_render``). The
-sharded steps run eagerly.
+an opacity reset made is copied in at the next step. Each densify round
+replays the run's compiled round (``train.densify.compile_densify``, as
+``apps/train.py`` jits ``densify_and_prune``), its key a device tensor, on
+the whole state under ``--mesh`` too. The eval's frames replay a render
+graph that the run owns (``render.compile_render``). The sharded steps run
+eagerly.
 """
 
 from __future__ import annotations
@@ -61,8 +64,9 @@ def main(argv=None) -> dict:
     """Run the trainer. Returns a summary: the logged ``losses`` as
     (step, loss) pairs, the ``evals`` (unrounded), the final ``step``, the
     final ``state`` (this rank's shard under ``--mesh``), the render
-    ``cfg`` its capacity regrows reached and, without ``--mesh``, the
-    compiled step's ``stats`` (captures, replays, copies) as ``compiled``."""
+    ``cfg`` its capacity regrows reached, without ``--mesh`` the compiled
+    step's ``stats`` (captures, replays, copies) as ``compiled``, and the
+    compiled densify round's as ``compiled_densify``."""
     p = argparse.ArgumentParser("tpusplat_torch.trainer", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--data", default=None,
@@ -150,7 +154,7 @@ def _train(args, dev, mesh) -> dict:
     from tpusplat_torch.render import compile_render, render_auto
     from tpusplat_torch.train import prng
     from tpusplat_torch.train.checkpoint import save_checkpoint
-    from tpusplat_torch.train.densify import DensifyConfig, densify_and_prune, reset_opacity
+    from tpusplat_torch.train.densify import DensifyConfig, compile_densify, reset_opacity
     from tpusplat_torch.train.losses import psnr, ssim
     from tpusplat_torch.train.step import (compile_train_step, create_train_state,
                                            make_optimizer)
@@ -215,13 +219,15 @@ def _train(args, dev, mesh) -> dict:
     densify_until = args.densify_until or args.steps // 2
     # The split draws follow apps/train.py's key chain: one split a round,
     # also where a round only prunes (the sharded steps leave the densify
-    # statistics empty). The card, the CPU and every rank draw alike.
+    # statistics empty). The card, the CPU and every rank draw alike. The
+    # chain stays on the host; each round's key goes in as a tensor.
     key = prng.key(0)
+    densify_round = compile_densify()
 
     def densify(st):
         nonlocal key
         key, sub = prng.split(key)
-        return densify_and_prune(st, sub, dcfg, scene_extent)
+        return densify_round(st, prng.key_tensor(sub, dev), dcfg, scene_extent)
 
     # Exact capacity recovery: train_step gates its update on the device, so
     # an overflowed step leaves the state as it was. The host reads the
@@ -348,7 +354,8 @@ def _train(args, dev, mesh) -> dict:
             save_checkpoint(args.ckpt, whole)
             print(f"checkpointed {args.ckpt}", file=sys.stderr)
     summary.update(step=int(state.step), state=state, cfg=cfg,
-                   compiled=None if train_step is None else dict(train_step.stats))
+                   compiled=None if train_step is None else dict(train_step.stats),
+                   compiled_densify=dict(densify_round.stats))
     return summary
 
 
