@@ -28,6 +28,13 @@ Phases, one output line each; any failure exits non-zero:
   4. grad_6k: the gradients of all five parameters through the whole CUDA
      pipeline against the plain pipeline on the CPU, same inputs, at 6k
      Gaussians, 128x128, SH3 (normalised atol 1e-4);
+ 4b. trace: the tracer's stamp kernel (``csrc/stamp.cu``) at the parity
+     shapes: ``%globaltimer`` read by 4000 eager and 2000 captured stamps
+     (steps, share of zero steps, monotonic), the anchor's spread over
+     single tries and its drift over 25 s, the stamp orders of three
+     compiled train steps and frames, images, losses, gradients and state
+     bit-equal with tracing on and off, ``draw_profiled`` replaying the
+     session's graph (one capture) and ``render_profiled``'s stage times;
   5. garden serving: 1.4M Gaussians at 1920x1080, SH3, tight radius,
      capacity from a preprocess probe x1.05; ``render_auto`` replaying
      the phase's compiled render (captured at the warm-up frame) on a
@@ -786,6 +793,123 @@ def phase_grad_6k(torch, dev):
                           g_cpu[f].reshape(1, -1)) for f in GRAD_FIELDS}
     log(phase="grad_6k", n=GRAD["n"], width=w, height=h, sh_degree=3, loss_cuda=loss_g,
         loss_cpu=loss_c, max_norm_err=errs)
+
+
+TRACE_FRAME = ["preprocess", "binning", "blend", "end"]
+TRACE_STEP = ["preprocess", "binning", "blend", "loss", "blend_bwd", "preprocess_bwd", "adam",
+              "writeback", "end"]
+
+
+def phase_trace(torch, dev):
+    """The tracer on the card (phase 4b of the module docstring)."""
+    import statistics
+
+    import numpy as np
+
+    from tpusplat_torch import trace
+    from tpusplat_torch.camera import look_at_camera
+    from tpusplat_torch.compiled import flatten
+    from tpusplat_torch.config import RenderConfig
+    from tpusplat_torch.io.synthetic import random_scene
+    from tpusplat_torch.render import compile_render, render_auto, render_profiled
+    from tpusplat_torch.session import Session, SessionConfig
+    from tpusplat_torch.train import step as tstep
+
+    def steps(entries):
+        return [b[1] - a[1] for a, b in zip(entries, entries[1:])]
+
+    torch.cuda.synchronize()
+    for _ in range(4000):
+        trace.stage("end", dev)
+    eager = steps(trace.read(dev, last=4000).entries)
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        for _ in range(2000):
+            trace.stage("end", dev)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    captured = steps(trace.read(dev, last=2000).entries)
+    if min(eager + captured) < 0:
+        fail("trace: %globaltimer went back")
+    timer = dict(eager_median_ns=statistics.median(eager),
+                 eager_zero_share=eager.count(0) / len(eager),
+                 captured_median_ns=statistics.median(captured),
+                 captured_zero_share=captured.count(0) / len(captured),
+                 smallest_steps_ns=sorted({d for d in eager + captured if d > 0})[:12])
+    anchors = []
+    for i in range(6):
+        single = [trace.anchor(dev, tries=1) for _ in range(5)]
+        anchors.append((time.perf_counter_ns(), trace.anchor(dev), max(single) - min(single)))
+        if i < 5:
+            time.sleep(5)
+    round_trip = []
+    for _ in range(20):
+        t0 = time.perf_counter_ns()
+        trace.anchor(dev, tries=1)
+        round_trip.append((time.perf_counter_ns() - t0) / 1e3)
+
+    n, w, h = PARITY["n"], PARITY["width"], PARITY["height"]
+    cam = look_at_camera([0.0, 0.5, 6.0], [0.0, 0.0, 0.0], w, h, fov_deg=60.0, device=dev)
+    cfg = RenderConfig(max_per_tile=4096, tight_radius=True)
+    target = torch.rand((h, w, 3), generator=torch.Generator(dev).manual_seed(5), device=dev)
+    opt = tstep.make_optimizer(scene_extent=4.0)
+    params = random_scene(n, seed=3, device=dev)
+    with torch.no_grad():
+        _, _, cfg = render_auto(params, cam, cfg, compiled=compile_render())
+    step, render = tstep.compile_train_step(), compile_render()
+    state = tstep.create_train_state(random_scene(n, seed=3, device=dev))
+    for _ in range(3):
+        state, _ = step(state, cam, target, cfg, opt)
+        with torch.no_grad():
+            render(state.params, cam, cfg)
+    stamps = trace.read(dev)
+    step_units, frame_units = stamps.units(step.tag), stamps.units(render.tag)
+    if [[m for m, _ in u.marks] for u in step_units] != [TRACE_STEP] * 3 or \
+            [[m for m, _ in u.marks] for u in frame_units] != [TRACE_FRAME] * 3:
+        fail(f"trace: stamp orders {[u.marks for u in step_units + frame_units]}")
+    del state, step, render
+
+    outs = []
+    for on in (True, False):
+        trace.enabled = on
+        st = tstep.create_train_state(random_scene(n, seed=3, device=dev))
+        loss, _, leaves = tstep.step_forward(st, cam, target, cfg)
+        grads = tstep.step_backward(loss, leaves)
+        stp = tstep.compile_train_step()
+        for _ in range(2):
+            st, metrics = stp(st, cam, target, cfg, opt)
+        with torch.no_grad():
+            img, _, _ = render_auto(st.params, cam, cfg, compiled=compile_render())
+        out = [loss, metrics["loss"], img, *grads.values()]
+        flatten(st, out)
+        outs.append(out)
+    trace.enabled = True
+    for a, b in zip(*outs):
+        check_equal("trace: tracing on against off", a, b)
+
+    sess = Session(SessionConfig(width=w, height=h, fov=60.0, render=cfg), params=params,
+                   device=dev)
+    sess.initialize()
+    sess.position = np.array([0.0, 0.5, 6.0])
+    sess.draw()
+    _, _, overlay = sess.draw_profiled()
+    sess.draw()
+    if sess._render.stats["captures"] != 1 or not all(v > 0 for v in overlay.values()):
+        fail(f"trace: draw_profiled {dict(sess._render.stats)} {overlay}")
+    _, _, eager_ms = render_profiled(params, cam, cfg)
+    if not all(v > 0 for v in eager_ms.values()):
+        fail(f"trace: render_profiled {eager_ms}")
+    log(phase="trace", globaltimer=timer,
+        anchor=dict(single_try_spread_us=[a[2] / 1e3 for a in anchors],
+                    offset_us_from_first=[(a[1] - anchors[0][1]) / 1e3 for a in anchors],
+                    seconds=[(a[0] - anchors[0][0]) / 1e9 for a in anchors],
+                    call_us=dict(min=min(round_trip), median=statistics.median(round_trip))),
+        step_ms=step_units[-1].stage_ms(), frame_ms=frame_units[-1].stage_ms(),
+        bit_equal_on_off=len(outs[0]), draw_profiled=overlay, render_profiled=eager_ms,
+        session_stats=dict(sess._render.stats))
 
 
 def phase_garden_serving(torch, dev, params, cams, cfg):
@@ -2389,8 +2513,8 @@ DRYRUN_RANKS, BENCH_STRIPS = 4, 8
 def phase_session(torch, dev, params, cfg):
     """The interactive session at the garden shapes: ``run_interactive``
     on scripted keys, the launch counters reset just before and read just
-    after (the profiled frames run the wrappers, the drawn frames replay the
-    session's graph); the pose against the motion constants, frame 0 and a
+    after (the drawn and the profiled frames replay the session's graph);
+    the pose against the motion constants, frame 0 and a
     frame after a resize bit-equal to ``render_auto`` at the same camera;
     then the keys again at the new size in a profiler window, emission and
     forward counted from the trace at least once a frame."""
@@ -2796,6 +2920,7 @@ def run(torch, dev, kind: str, smi: str) -> int:
     with torch.no_grad():
         phase_parity(torch, dev)
     phase_grad_6k(torch, dev)
+    phase_trace(torch, dev)
 
     params, cams, cfg = garden_inputs(torch, dev)
     with torch.no_grad():

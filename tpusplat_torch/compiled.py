@@ -43,6 +43,14 @@ resize"). :func:`compile_step` gives the port the same contract on the card:
   parameters), until it is dropped, its step is cleared or the caller lets
   go of its step: the caller owns the memory, as it owns the step.
 
+**Tracing** (:mod:`tpusplat_torch.trace`). The body stamps ``writeback``
+before it copies a donated argument's new value into its buffers, and
+``end`` last, and every stamp inside carries the step's ``tag``; the
+warm-up calls stamp nothing, so the stamps of a step are those of its
+replays. A call records the host spans ``compiled:<fn>`` and, inside it,
+``key`` (bind, flatten, hash), ``capture``, ``copy_in``, ``replay`` (the
+launch) and ``copy_out`` (the result's copies).
+
 **Launch counts.** A kernel wrapper adds one to its counter each time it
 launches its kernel: the warm-up calls launch, and the captured call
 launches into the graph. A replay runs no wrapper, so it adds nothing to
@@ -70,6 +78,8 @@ import time
 import weakref
 
 import torch
+
+from tpusplat_torch import trace
 
 KEEP = 2  # entries a compiled step keeps
 WARMUP_CALLS = 2  # eager calls on a side stream before a capture
@@ -137,8 +147,8 @@ class _Entry:
         # the step's parts, not the step: an entry holding its step would make
         # a cycle, and a step dropped by its owner would keep its graphs until
         # the garbage collector ran
-        self.fn, self.donate, self.stats, self.name = step.fn, step.donate, step.stats, \
-            step.__name__
+        self.fn, self.donate, self.stats, self.name, self.tag = step.fn, step.donate, \
+            step.stats, step.__name__, step.tag
         self.static, self.structs = static, structs
         self.inputs = [t.detach().clone() for t in leaves]
         self.sources = [None] * len(leaves)  # (weakref, version) of the last copy's source
@@ -161,15 +171,19 @@ class _Entry:
 
     def body(self):
         """The step on the static buffers, then each donated argument's new
-        value written into its buffers."""
-        out = self.fn(**self.args())
-        for name, idx in self.donate.items():
-            new = []
-            flatten(out[idx], new)
-            lo, hi = self.ranges[name]
-            for buf, t in zip(self.inputs[lo:hi], new):
-                if t is not buf:
-                    buf.copy_(t)
+        value written into its buffers, stamped with the step's tag."""
+        with trace.tagged(self.tag):
+            out = self.fn(**self.args())
+            if self.donate:
+                trace.stage("writeback", self.device)
+            for name, idx in self.donate.items():
+                new = []
+                flatten(out[idx], new)
+                lo, hi = self.ranges[name]
+                for buf, t in zip(self.inputs[lo:hi], new):
+                    if t is not buf:
+                        buf.copy_(t)
+            trace.stage("end", self.device)
         return out
 
     def _kept(self, out):
@@ -201,12 +215,14 @@ class _Entry:
 
     def _capture_graph(self):
         with torch.cuda.device(self.device):
+            trace.prepare(self.device)
             main, side = torch.cuda.current_stream(self.device), _side_stream(self.device)
             side.wait_stream(main)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.stream(side):
-                for _ in range(WARMUP_CALLS):
-                    self.fn(**self.args())
+                with trace.quiet():
+                    for _ in range(WARMUP_CALLS):
+                        self.fn(**self.args())
                 graph.capture_begin(pool=torch.cuda.graph_pool_handle())
                 try:
                     out = self.body()
@@ -272,7 +288,8 @@ class CompiledStep:
     """``fn`` captured once per key and replayed (the module docstring says
     how); called like ``fn``. ``stats`` counts captures, replays (the first
     call's included), evictions, inputs copied in and copies skipped, and the
-    seconds of the captures (warm-up included)."""
+    seconds of the captures (warm-up included). ``tag`` marks the stamps of
+    its replays (:mod:`tpusplat_torch.trace`)."""
 
     def __init__(self, fn, static_argnames=(), donate=None):
         self.fn = fn
@@ -287,46 +304,55 @@ class CompiledStep:
             raise ValueError(f"{self.__name__} has no argument {sorted(unknown)}")
         self._entries: collections.OrderedDict = collections.OrderedDict()
         self.stats = collections.Counter(capture_s=0.0)
+        self.tag = trace.new_tag()
+        self._span = f"compiled:{self.__name__}"
 
     def __len__(self) -> int:
         return len(self._entries)
 
     def __call__(self, *args, **kwargs):
-        bound = self.signature.bind(*args, **kwargs)
-        bound.apply_defaults()
-        static = {k: bound.arguments[k] for k in self.static_argnames}
-        structs, leaves = {}, []
-        for name, v in bound.arguments.items():
-            if name not in static:
-                n = len(leaves)
-                structs[name] = (flatten(v, leaves), len(leaves) - n)
-        devices = {t.device for t in leaves}
-        if len(devices) > 1:
-            raise ValueError(f"{self.__name__}: tensors on more than one device: "
-                             f"{sorted(map(str, devices))}")
-        key = (tuple(static.items()), tuple((k, s) for k, (s, _) in structs.items()),
-               tuple((tuple(t.shape), t.dtype, t.device) for t in leaves),
-               torch.is_grad_enabled())
-        entry = self._entries.get(key)
-        if entry is None:
-            while len(self._entries) >= KEEP:
-                self._entries.popitem(last=False)[1].close()
-                self.stats["evictions"] += 1
-            t0 = time.perf_counter()
-            entry = _Entry(self, static, structs, leaves)
-            entry.capture()
-            self._entries[key] = entry
-            self.stats["captures"] += 1
-            self.stats["capture_s"] += time.perf_counter() - t0
-            if entry.graph is not None:
-                entry.replay()
+        with trace.span(self._span):
+            with trace.span("key"):
+                bound = self.signature.bind(*args, **kwargs)
+                bound.apply_defaults()
+                static = {k: bound.arguments[k] for k in self.static_argnames}
+                structs, leaves = {}, []
+                for name, v in bound.arguments.items():
+                    if name not in static:
+                        n = len(leaves)
+                        structs[name] = (flatten(v, leaves), len(leaves) - n)
+                devices = {t.device for t in leaves}
+                if len(devices) > 1:
+                    raise ValueError(f"{self.__name__}: tensors on more than one device: "
+                                     f"{sorted(map(str, devices))}")
+                key = (tuple(static.items()), tuple((k, s) for k, (s, _) in structs.items()),
+                       tuple((tuple(t.shape), t.dtype, t.device) for t in leaves),
+                       torch.is_grad_enabled())
+                entry = self._entries.get(key)
+            if entry is None:
+                with trace.span("capture"):
+                    while len(self._entries) >= KEEP:
+                        self._entries.popitem(last=False)[1].close()
+                        self.stats["evictions"] += 1
+                    t0 = time.perf_counter()
+                    entry = _Entry(self, static, structs, leaves)
+                    entry.capture()
+                    self._entries[key] = entry
+                    self.stats["captures"] += 1
+                    self.stats["capture_s"] += time.perf_counter() - t0
+                if entry.graph is not None:
+                    with trace.span("replay"):
+                        entry.replay()
+                else:
+                    self.stats["replays"] += 1  # the capture's run was the first replay
             else:
-                self.stats["replays"] += 1  # the capture's run was the first replay
-        else:
-            self._entries.move_to_end(key)
-            entry.copy_in(leaves)
-            entry.replay()
-        return entry.result()
+                self._entries.move_to_end(key)
+                with trace.span("copy_in"):
+                    entry.copy_in(leaves)
+                with trace.span("replay"):
+                    entry.replay()
+            with trace.span("copy_out"):
+                return entry.result()
 
     def clear(self) -> None:
         """Drop every entry: graphs, pools and buffers."""

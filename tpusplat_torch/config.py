@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 import os
 
+from tpusplat_torch import trace
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -142,7 +144,13 @@ def regrow(cfg: RenderConfig, counters: dict, shard_gaussians: int):
     """The shared overflow-recovery policy: each overflow channel grows its
     own capacity. ``counters`` values may be tensors, numpy arrays or ints
     (summed here). Returns (new_cfg, log_dict); log_dict is None when
-    nothing overflowed (new_cfg is then ``cfg`` itself)."""
+    nothing overflowed (new_cfg is then ``cfg`` itself). A host span,
+    ``regrow``, holds the counters' reads."""
+    with trace.span("regrow"):
+        return _regrow(cfg, counters, shard_gaussians)
+
+
+def _regrow(cfg: RenderConfig, counters: dict, shard_gaussians: int):
 
     def get(k):
         v = counters.get(k, 0)

@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from tpusplat_torch import trace
 from tpusplat_torch.config import RenderConfig
 from tpusplat_torch.ops import _build
 from tpusplat_torch.ops.binning import BinnedInstances
@@ -61,11 +62,13 @@ def _backward_kernel():
 
 
 def pack_instances(pg: ProcessedGaussians, binned: BinnedInstances) -> torch.Tensor:
-    """The [9, C] attribute slab of the sorted instances (differentiable)."""
+    """The [9, C] attribute slab of the sorted instances (differentiable).
+    The backward stamps ``preprocess_bwd`` once the table's gradient is
+    reduced (:func:`tpusplat_torch.trace.grad_stage`)."""
     table = torch.cat(
         [pg.uv.T, pg.conic.T, pg.opacity[None, :], pg.color.T], dim=0
     )  # [9, N]
-    return _PackGather.apply(table, binned.gauss_id)
+    return _PackGather.apply(trace.grad_stage(table, "preprocess_bwd"), binned.gauss_id)
 
 
 class _PackGather(torch.autograd.Function):

@@ -9,17 +9,20 @@ the hand-written kernels). :func:`render_stages` runs eagerly;
 captured once per configuration and frame size (:mod:`tpusplat_torch.compiled`),
 which its caller owns.
 ``cfg.debug_checks`` adds the validation counters of
-:mod:`tpusplat_torch.ops.validate` to ``aux["debug"]``.
+:mod:`tpusplat_torch.ops.validate` to ``aux["debug"]``. Each stage stamps
+its start (:mod:`tpusplat_torch.trace`): ``preprocess``, ``binning``,
+``blend``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
+import math
 import warnings
 
 import torch
 
+from tpusplat_torch import trace
 from tpusplat_torch.compiled import compile_step
 from tpusplat_torch.config import RenderConfig
 from tpusplat_torch.ops import validate
@@ -47,8 +50,12 @@ def render_stages(params: GaussianParams, camera: Camera, cfg: RenderConfig):
     tile_overflow (plain path only), gauss_overflow, num_instances,
     max_tile_count, visible and radius; with ``cfg.debug_checks`` also
     ``debug``, the validation counters (0-d int32 tensors)."""
+    dev = params.device
+    trace.stage("preprocess", dev)
     pg = preprocess(params, camera, cfg)
+    trace.stage("binning", dev)
     binned = bin_and_sort(pg, camera.width, camera.height, cfg)
+    trace.stage("blend", dev)
     img, aux = rasterize(pg, binned, camera.width, camera.height, cfg)
     return img, _finish_aux(aux, params, pg, binned, img, cfg)
 
@@ -63,39 +70,36 @@ def compile_render():
     return compile_step(render_stages, static_argnames=("cfg",))
 
 
+PROFILED_STAGES = {"preprocess": "preprocess", "binning": "bin+sort", "blend": "raster"}
+FRAME_STAMPS = len(PROFILED_STAGES) + 1  # a frame's stamps, its end included
+
+
+def stage_times(unit) -> dict:
+    """A frame's stage times in ms, from its stamps (a :class:`trace.Unit`,
+    None when tracing is off), under the overlay's names: preprocess,
+    bin+sort, raster (NaN without stamps)."""
+    ms = unit.stage_ms() if unit is not None else {}
+    return {shown: ms.get(name, math.nan) for name, shown in PROFILED_STAGES.items()}
+
+
 def render_profiled(params: GaussianParams, camera: Camera, cfg: RenderConfig):
-    """Render one frame stage by stage, returning (img, aux, stage_ms).
+    """Render one frame eagerly, returning (img, aux, stage_ms).
 
-    On the card each stage is timed with CUDA events on the current stream
-    (one synchronisation at the end of the frame); on the CPU with the host
-    clock. The analogue of the reference's timestamp queries
-    (``src/Renderer.cpp:484-699``)."""
-    cuda = params.device.type == "cuda"
-    marks = []
+    The stage times are read from the frame's own stamps (one
+    synchronisation at the end), the analogue of the reference's timestamp
+    queries (``src/Renderer.cpp:484-699``)."""
+    with trace.tagged(trace.PROFILED):
+        img, aux = render_stages(params, camera, cfg)
+        trace.stage("end", params.device)
+    return img, aux, stage_times(last_unit(params.device, trace.PROFILED))
 
-    def mark():
-        if cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append(ev)
-        else:
-            marks.append(time.perf_counter())
 
-    w, h = camera.width, camera.height
-    mark()
-    pg = preprocess(params, camera, cfg)
-    mark()
-    binned = bin_and_sort(pg, w, h, cfg)
-    mark()
-    img, aux = rasterize(pg, binned, w, h, cfg)
-    mark()
-    if cuda:
-        marks[-1].synchronize()
-        ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-    else:
-        ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
-    stage_ms = dict(zip(("preprocess", "bin+sort", "raster"), ms))
-    return img, _finish_aux(aux, params, pg, binned, img, cfg), stage_ms
+def last_unit(device, tag: int):
+    """The latest frame stamped with ``tag`` (None when tracing is off)."""
+    if not trace.enabled:
+        return None
+    units = trace.read(device, last=FRAME_STAMPS + 1).units(tag)
+    return units[-1] if units else None
 
 
 def render(params: GaussianParams, camera: Camera, cfg: RenderConfig | None = None):
@@ -133,14 +137,17 @@ def render_auto(
         cfg = RenderConfig()
     if compiled is None:
         compiled = compile_render()
-    for _ in range(max_regrows + 1):
-        img, aux = compiled(params, camera, cfg)
-        overflow = int(aux["capacity_overflow"])
-        if overflow <= 0 or max_regrows <= 0:
-            break
-        needed = cfg.instance_capacity(params.num_gaussians) + overflow
-        cfg = dataclasses.replace(cfg, capacity=int(needed * growth))
-        max_regrows -= 1
+    with trace.span("render_auto"):
+        for _ in range(max_regrows + 1):
+            img, aux = compiled(params, camera, cfg)
+            with trace.span("read_overflow"):
+                overflow = int(aux["capacity_overflow"])
+            if overflow <= 0 or max_regrows <= 0:
+                break
+            with trace.span("regrow"):
+                needed = cfg.instance_capacity(params.num_gaussians) + overflow
+                cfg = dataclasses.replace(cfg, capacity=int(needed * growth))
+            max_regrows -= 1
     if overflow > 0:
         warnings.warn(
             f"render_auto: image truncated — {overflow} instances beyond "

@@ -20,10 +20,11 @@ from typing import Callable
 import numpy as np
 import torch
 
+from tpusplat_torch import trace
 from tpusplat_torch.camera import make_camera, quat_to_rotmat
 from tpusplat_torch.config import RenderConfig
 from tpusplat_torch.io.ply import load_ply
-from tpusplat_torch.render import compile_render, render_auto, render_profiled
+from tpusplat_torch.render import compile_render, last_unit, render_auto, stage_times
 from tpusplat_torch.types import GaussianParams, resolve_device
 
 ROTATE_RAD_PER_PX = 0.005
@@ -110,25 +111,31 @@ class Session:
         grown capacity (``render_auto``, the reference's sort-buffer growth
         and retry, ``src/Renderer.cpp:541-563``); the grown config is kept
         for later frames. Frames replay the session's own render graph
-        (``compile_render``), freed with the session.
+        (``compile_render``), freed with the session. Host spans: ``draw``
+        around ``camera`` and ``render_auto``.
         """
         assert self._initialized, "call initialize() first"
-        img, aux, grown = render_auto(self.params, self.camera(), self.config.render,
-                                      compiled=self._render)
-        if grown is not self.config.render:
-            self.config = dataclasses.replace(self.config, render=grown)
+        with trace.span("draw"):
+            with trace.span("camera"):
+                cam = self.camera()
+            img, aux, grown = render_auto(self.params, cam, self.config.render,
+                                          compiled=self._render)
+            if grown is not self.config.render:
+                self.config = dataclasses.replace(self.config, render=grown)
         return img, aux
 
     @torch.no_grad()
     def draw_profiled(self):
-        """Like draw(), but returns (img, aux, stage_ms) with per-stage times.
+        """draw(), returning (img, aux, stage_ms) with the frame's stage times.
 
         The per-stage metrics source for the viewer overlay (the reference
         shows live preprocess/sort/render ms from Vulkan timestamp queries,
-        ``src/GUIManager.cpp:45-100``): ``render_profiled``, CUDA events
-        between the stages on the card. It does not regrow the capacity."""
-        assert self._initialized, "call initialize() first"
-        return render_profiled(self.params, self.camera(), self.config.render)
+        ``src/GUIManager.cpp:45-100``): the stamps of the frame's replay of
+        the session's graph, regrow included (``preprocess``, ``bin+sort``,
+        ``raster``; NaN when tracing is off). One synchronisation reads
+        them."""
+        img, aux = Session.draw(self)
+        return img, aux, stage_times(last_unit(self.device, self._render.tag))
 
     def resize(self, width: int, height: int):
         """Change the render resolution mid-session.

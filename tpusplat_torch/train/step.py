@@ -13,7 +13,10 @@ late (``tpusplat_torch/trainer.py``).
 :func:`train_step` runs eagerly and is functional (it returns a new state
 and leaves the old one intact, as in JAX). :func:`compile_train_step` is
 its counterpart of the JAX package's ``jax.jit``: a CUDA graph replayed per
-step, the state donated (:mod:`tpusplat_torch.compiled`).
+step, the state donated (:mod:`tpusplat_torch.compiled`). The step stamps
+its stages after the render's (:mod:`tpusplat_torch.trace`): ``loss``
+before the loss, ``blend_bwd`` when the image's gradient is ready (the
+backward of the loss done), and ``adam`` before the update.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import dataclasses
 
 import torch
 
+from tpusplat_torch import trace
 from tpusplat_torch.compiled import compile_step
 from tpusplat_torch.config import RenderConfig
 from tpusplat_torch.render import render_stages
@@ -146,6 +150,8 @@ def step_forward(state: TrainState, camera: Camera, target: torch.Tensor, cfg: R
     trainable, alive = split_trainable(state.params)
     leaves = {k: v.detach().requires_grad_(True) for k, v in trainable.items()}
     img, aux = render_stages(merge_trainable(leaves, alive), camera, cfg)
+    trace.stage("loss", img.device)
+    img = trace.grad_stage(img, "blend_bwd")
     return gs_loss(img, target, ssim_weight), aux, leaves
 
 
@@ -161,6 +167,7 @@ def apply_gradients(state: TrainState, loss, aux: dict, grads: dict, optimizer: 
     device: a step whose render overflowed any capacity leaves every tensor
     of the state bit-identical (``step.py:114-126`` of the JAX package).
     Returns (state, metrics); no value is read on the host."""
+    trace.stage("adam", state.step.device)
     trainable, alive = split_trainable(state.params)
     params, mu, nu, count = adam_update(optimizer, trainable, grads, state.mu, state.nu,
                                         state.count)

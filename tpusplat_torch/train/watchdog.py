@@ -14,8 +14,10 @@ Usage:
             int(metrics["capacity_overflow"])  # the device sync
             dog.beat(step)
 
-On expiry the watchdog dumps every Python thread's stack to ``out`` and
-runs ``on_expire``, by default ``os._exit(42)``: a blocked device call
+On expiry the watchdog dumps every Python thread's stack and the last 32
+host spans of the tracer's ring, the open ones last
+(:func:`tpusplat_torch.trace.recent`; not the device's stamps, whose read
+would wait on the hung card), to ``out``, and runs ``on_expire``, by default ``os._exit(42)``: a blocked device call
 cannot be interrupted by an exception raised in its thread, so a hard exit
 with a distinctive code is the honest contract.
 """
@@ -28,6 +30,10 @@ import sys
 import threading
 import time
 import traceback
+
+from tpusplat_torch import trace
+
+SPANS_SHOWN = 32
 
 
 class Watchdog:
@@ -68,6 +74,10 @@ class Watchdog:
                         faulthandler.dump_traceback(file=self._out)
                 except Exception:
                     pass
+                self._out.write(f"--- last {SPANS_SHOWN} host spans ---\n")
+                for line in trace.recent(SPANS_SHOWN):
+                    self._out.write(line + "\n")
+                self._out.flush()
                 if self._on_expire is not None:
                     self._on_expire()
                 else:

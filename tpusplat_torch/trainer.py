@@ -47,7 +47,10 @@ replays the run's compiled round (``train.densify.compile_densify``, as
 ``apps/train.py`` jits ``densify_and_prune``), its key a device tensor, on
 the whole state under ``--mesh`` too. The eval's frames replay a render
 graph that the run owns (``render.compile_render``). The sharded steps run
-eagerly.
+eagerly. The loop records the host spans ``train_step``, ``poll`` (the
+counters' read, one step late), ``densify`` and ``eval``
+(:mod:`tpusplat_torch.trace`); ``--watchdog-secs`` prints the last of them
+on a stall.
 """
 
 from __future__ import annotations
@@ -146,6 +149,7 @@ def main(argv=None) -> dict:
 def _train(args, dev, mesh) -> dict:
     import torch
 
+    from tpusplat_torch import trace
     from tpusplat_torch.config import RenderConfig, regrow
     from tpusplat_torch.io.ply import save_ply
     from tpusplat_torch.io.synthetic import random_scene
@@ -244,6 +248,10 @@ def _train(args, dev, mesh) -> dict:
     dog = Watchdog(args.watchdog_secs).start() if args.watchdog_secs > 0 else None
 
     def poll_oldest():
+        with trace.span("poll"):
+            _poll_oldest()
+
+    def _poll_oldest():
         nonlocal cfg, done
         i, metrics = inflight.popleft()
         overflow = int(metrics["capacity_overflow"])
@@ -273,6 +281,10 @@ def _train(args, dev, mesh) -> dict:
     eval_render = compile_render()  # the evals' render graphs, freed with the run
 
     def run_eval(step_no, final=False):
+        with trace.span("eval"):
+            _run_eval(step_no, final)
+
+    def _run_eval(step_no, final):
         params = whole_params()  # every rank gathers; rank 0 renders
         if not lead:
             return
@@ -312,12 +324,13 @@ def _train(args, dev, mesh) -> dict:
                 # Work submitted: the completion beat in poll_oldest comes one
                 # step later, and the first step builds the kernels.
                 dog.beat(done)
-            if mesh is None:
-                state, metrics = train_step(state, cams[i], targets[i], cfg, optimizer)
-            else:
-                state, metrics = shard_step(state, [cams[j] for j in i],
-                                            torch.stack([targets[j] for j in i]), cfg,
-                                            optimizer, mesh)
+            with trace.span("train_step"):
+                if mesh is None:
+                    state, metrics = train_step(state, cams[i], targets[i], cfg, optimizer)
+                else:
+                    state, metrics = shard_step(state, [cams[j] for j in i],
+                                                torch.stack([targets[j] for j in i]), cfg,
+                                                optimizer, mesh)
             inflight.append((i, metrics))
             if len(inflight) >= 2 or done + len(inflight) >= args.steps:
                 poll_oldest()
@@ -325,11 +338,12 @@ def _train(args, dev, mesh) -> dict:
             if args.densify_every and step - last_densify >= args.densify_every \
                     and step <= densify_until:
                 last_densify = step
-                if mesh is None:
-                    state = densify(state)
-                else:  # on the whole state, the same draws on every rank
-                    whole = densify(sharded.gather_state(state, mesh))
-                    state = sharded.shard_state(whole, mesh)
+                with trace.span("densify"):
+                    if mesh is None:
+                        state = densify(state)
+                    else:  # on the whole state, the same draws on every rank
+                        whole = densify(sharded.gather_state(state, mesh))
+                        state = sharded.shard_state(whole, mesh)
             if args.opacity_reset_every and step - last_reset >= args.opacity_reset_every \
                     and step <= densify_until:
                 last_reset = step
