@@ -28,6 +28,24 @@ Phases, one output line each; any failure exits non-zero:
   4. grad_6k: the gradients of all five parameters through the whole CUDA
      pipeline against the plain pipeline on the CPU, same inputs, at 6k
      Gaussians, 128x128, SH3 (normalised atol 1e-4);
+ 4a. preprocess: the preprocess kernel (``csrc/preprocess.cu``) against
+     ``preprocess_plain`` on the card under no_grad: first whether
+     ``torch.sum`` adds the plain version's three sums in the order the
+     kernel assumes; then garden and bicycle scale on three orbit poses
+     (tight radius on and off) and an adversarial set (depths at and around
+     0.2, det <= 0, both Jacobian clamps, 255 * opacity at and around 1,
+     dead slots, boxes on the frame's edges and tile borders, zero
+     quaternions) over every SH degree, colour clamp, tight radius on and
+     off and scale_modifier 1 and 0.6: culls, radius, aabb and ntiles
+     bit-equal, uv, conic, depth and opacity within 2 ulp, colour within
+     1e-6; the kernel's ms (its C call alone and its wrapper) beside its
+     byte bound and the plain version's ms; the route: ``LAUNCHES`` moves by
+     one over an eager frame and not over an eager train step, and by name
+     in profiler traces a replayed ``render_auto`` frame runs the kernel
+     once, a compiled train step never (alone: python3 -c "import torch,
+     chip_smoke as cs; d = torch.device('cuda'); cs.start(torch,
+     torch.cuda.get_device_name(0), cs.nvidia_smi()); cs.phase_preprocess(
+     torch, d)");
  4b. trace: the tracer's stamp kernel (``csrc/stamp.cu``) at the parity
      shapes: ``%globaltimer`` read by 4000 eager and 2000 captured stamps
      (steps, share of zero steps, monotonic), the anchor's spread over
@@ -41,9 +59,9 @@ Phases, one output line each; any failure exits non-zero:
      3-camera orbit, timed, with the launch counters reset just before and
      read just after (a replay runs no wrapper); ``render_profiled`` once
      before the capture and twice after it; the orbit again in a profiler
-     window a frame, emission and forward counted from the trace at least
-     once a frame; ``render_profiled`` once more; the cudaMalloc calls each
-     ``render_profiled`` made;
+     window a frame, emission, forward and preprocess counted from the
+     trace at least once a frame; ``render_profiled`` once more; the
+     cudaMalloc calls each ``render_profiled`` made;
   6. garden training: the eager ``train_step`` at the same shapes against
      renders of a second random scene, one warm-up step and three timed
      steps with the regrow retry, counters reset just before and read just
@@ -795,6 +813,329 @@ def phase_grad_6k(torch, dev):
         loss_cpu=loss_c, max_norm_err=errs)
 
 
+# The preprocess kernel's phase: the scenes it is held to the plain version
+# on (profile_detail's garden and bicycle), the adversarial set's size a
+# group, and the orbit poses a scene.
+PREPROCESS_SCENES = ("garden", "bicycle")
+PREPROCESS_GROUP, PREPROCESS_POSES = 20_000, 3
+# Fields held bit for bit, to 2 ulp, and the colour's absolute bound (the
+# plain version's SH sum is a torch.sum, whose order is not promised).
+PREPROCESS_EXACT = ("ntiles", "aabb", "radius")
+PREPROCESS_ULP = ("uv", "conic", "depth", "opacity")
+PREPROCESS_ULP_MAX, PREPROCESS_COLOR_ATOL = 2, 1e-6
+
+
+def ulp_distance(torch, a, b):
+    """Units in the last place between float32 tensors, elementwise (int64;
+    0 where both are NaN, 2**40 where one is)."""
+    ka, kb = ((x.contiguous().view(torch.int32).long()) for x in (a, b))
+    ka, kb = (torch.where(k < 0, -(k & 0x7FFFFFFF), k) for k in (ka, kb))
+    d = (ka - kb).abs()
+    na, nb = a.isnan(), b.isnan()
+    return torch.where(na & nb, 0, torch.where(na ^ nb, 2 ** 40, d))
+
+
+def compare_processed(torch, what, got, want, problems) -> dict:
+    """The kernel's ProcessedGaussians against the plain version's: the
+    exact fields bit for bit, the ulp fields within 2 ulp, colour within
+    1e-6 (NaN where both are NaN). Appends what breaks to ``problems``;
+    returns the worst of each."""
+    out = {}
+    for f in PREPROCESS_EXACT:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.is_floating_point():
+            differ = int((ulp_distance(torch, a, b) != 0).sum())
+        else:
+            differ = int((a != b).sum())
+        out[f] = differ
+        if differ:
+            problems.append(f"{what}: {f} differs in {differ} elements")
+    culled = (got.ntiles == 0) != (want.ntiles == 0)
+    out["culls_differ"] = int(culled.sum())
+    for f in PREPROCESS_ULP:
+        d = ulp_distance(torch, getattr(got, f), getattr(want, f))
+        out[f] = int(d.max()) if d.numel() else 0
+        if out[f] > PREPROCESS_ULP_MAX:
+            problems.append(f"{what}: {f} off by {out[f]} ulp "
+                            f"({int((d > PREPROCESS_ULP_MAX).sum())} elements)")
+    a, b = got.color, want.color
+    both_nan = a.isnan() & b.isnan()
+    err = torch.where(both_nan, 0.0, (a - b).abs())
+    out["color"] = float(err.max()) if err.numel() else 0.0
+    if not out["color"] <= PREPROCESS_COLOR_ATOL:
+        problems.append(f"{what}: color off by {out['color']}")
+    return out
+
+
+def check_sum_orders(torch, dev, n=1 << 20) -> dict:
+    """Whether torch.sum on the card adds the plain version's three sums in
+    the order the kernel assumes: a [n, 4] row as (x0 + x2) + (x1 + x3), a
+    [n, 3] row as (x0 + x2) + x1, and [n, k, 3] over k into four
+    interleaved accumulators. Counts the rows that differ (0 each, or the
+    kernel's colour, radius and boxes can differ); the sequential order's
+    count beside each shows that the probe sees an order at all."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x4 = torch.randn(n, 4, generator=g, device=dev)
+    x3 = torch.randn(n, 3, generator=g, device=dev)
+    res = dict(
+        quat=int((x4.sum(-1) != (x4[:, 0] + x4[:, 2]) + (x4[:, 1] + x4[:, 3])).sum()),
+        quat_sequential=int((x4.sum(-1) != ((x4[:, 0] + x4[:, 1]) + x4[:, 2]) + x4[:, 3]).sum()),
+        dir=int((x3.sum(-1) != (x3[:, 0] + x3[:, 2]) + x3[:, 1]).sum()),
+        dir_sequential=int((x3.sum(-1) != (x3[:, 0] + x3[:, 1]) + x3[:, 2]).sum()))
+    for k in (4, 9, 16):
+        xs = torch.randn(n, k, 3, generator=g, device=dev)
+        acc = [torch.zeros(n, 3, device=dev) for _ in range(4)]
+        seq = torch.zeros(n, 3, device=dev)
+        for i in range(k):
+            acc[i % 4] = acc[i % 4] + xs[:, i]
+            seq = seq + xs[:, i]
+        want = ((acc[0] + acc[1]) + acc[2]) + acc[3]
+        res[f"sh{k}"] = int((xs.sum(-2) != want).sum())
+        res[f"sh{k}_sequential"] = int((xs.sum(-2) != seq).sum())
+    return res
+
+
+def adversarial_gaussians(torch, dev, width, height, tan_fovx, seed, m=PREPROCESS_GROUP):
+    """(params, camera, groups): a camera whose view matrix is the
+    identity (so a Gaussian's depth is its z, exactly) and groups of m
+    Gaussians that each meet one edge of preprocess: depths at and around
+    z_near_cull 0.2, det <= 0 (needle-thin Gaussians 100 long, whose 2D
+    covariance cancels in float32), both Jacobian clamps (off the frustum
+    on both axes and sides), 255 * opacity at and around 1, dead slots,
+    boxes on the frame's edges and tile borders, and ordinary ones; groups
+    name their index ranges."""
+    import numpy as np
+
+    from tpusplat_torch.types import Camera, GaussianParams
+
+    rng = np.random.default_rng(seed)
+    tan_fovy = tan_fovx * height / width
+    f32 = np.float32
+
+    def cone(z, spread=0.9):  # x, y inside the frustum at depth z
+        return (rng.uniform(-spread, spread, z.shape) * tan_fovx * z,
+                rng.uniform(-spread, spread, z.shape) * tan_fovy * z)
+
+    groups, means, scales, opac = {}, [], [], []
+
+    def add(name, xyz, s, op):
+        lo = sum(len(x) for x in means)
+        means.append(np.stack(xyz, -1).astype(f32))
+        scales.append(np.asarray(s, f32))
+        opac.append(np.asarray(op, f32))
+        groups[name] = (lo, lo + len(means[-1]))
+
+    def ordinary_op(k):
+        return np.log(1.0 / rng.uniform(0.1, 0.95, k) - 1.0) * -1.0
+
+    # depth: 0.2 itself, its 64 float neighbours each side, and a band around it
+    z_near = (np.array([0.2], f32).view(np.int32) + np.arange(-64, 65, dtype=np.int32)).view(f32)
+    z = np.concatenate([np.resize(z_near, m // 2), rng.uniform(0.15, 0.25, m - m // 2)])
+    add("depth", (*cone(z), z), rng.uniform(0.002, 0.05, (m, 3)), ordinary_op(m))
+    # det <= 0: one axis 100 long, two 1e-5, in front and on screen
+    z = rng.uniform(2.0, 20.0, m)
+    s = np.stack([np.full(m, 100.0), np.full(m, 1e-5), np.full(m, 1e-5)], -1)
+    add("det", (*cone(z, 0.5), z), s, ordinary_op(m))
+    # Jacobian clamps: x/z and y/z past 1.3 tan_fov on either side
+    z = rng.uniform(0.5, 10.0, m)
+    sx, sy = rng.choice([-1.0, 1.0], m), rng.choice([-1.0, 1.0], m)
+    add("clamp", (sx * rng.uniform(1.0, 3.0, m) * tan_fovx * z,
+                  sy * rng.uniform(1.0, 3.0, m) * tan_fovy * z, z),
+        rng.uniform(0.05, 2.0, (m, 3)), ordinary_op(m))
+    # opacity: logits whose sigmoid times 255 lies at and around 1
+    logit = np.full(m, np.log(1.0 / 254.0), f32)
+    raw = (logit.view(np.int32) + rng.integers(-4096, 4097, m).astype(np.int32)).view(f32)
+    z = rng.uniform(1.0, 10.0, m)
+    add("opacity", (*cone(z), z), rng.uniform(0.005, 0.1, (m, 3)), raw)
+    # dead slots (alive False), otherwise ordinary
+    z = rng.uniform(1.0, 10.0, m)
+    add("dead", (*cone(z), z), rng.uniform(0.005, 0.1, (m, 3)), ordinary_op(m))
+    # boxes on the frame's edges and on tile borders: centres within 24 px
+    # of x = 0, x = W, y = 0, y = H, or of a multiple of 16
+    z = rng.uniform(1.0, 10.0, m)
+    fx, fy = width / (2 * tan_fovx), height / (2 * tan_fovy)
+    u = np.where(rng.random(m) < 0.5, rng.choice([0.0, width], m),
+                 16.0 * rng.integers(0, width // 16 + 1, m)) + rng.uniform(-24, 24, m)
+    v = np.where(rng.random(m) < 0.5, rng.choice([0.0, height], m),
+                 16.0 * rng.integers(0, height // 16 + 1, m)) + rng.uniform(-24, 24, m)
+    add("edge", ((u - width / 2) / fx * z, (v - height / 2) / fy * z, z),
+        rng.uniform(0.001, 0.05, (m, 3)), ordinary_op(m))
+    z = rng.uniform(1.0, 10.0, m)
+    add("ordinary", (*cone(z), z), rng.uniform(0.002, 0.2, (m, 3)), ordinary_op(m))
+
+    mean = np.concatenate(means)
+    n = len(mean)
+    quats = rng.normal(size=(n, 4)).astype(f32)
+    quats[: n // 50] = 0.0  # a zero quaternion: the 1e-12 guard alone
+    sh = rng.uniform(-1.0, 1.0, (n, 16, 3)).astype(f32)
+    alive = np.ones(n, bool)
+    lo, hi = groups["dead"]
+    alive[lo:hi] = False
+    params = GaussianParams.create(means=mean, log_scales=np.log(np.concatenate(scales)),
+                                   quats=quats, opacities=np.concatenate(opac), sh=sh,
+                                   alive=alive, device=dev)
+    proj = np.zeros((4, 4))
+    proj[0, 0], proj[1, 1], proj[2, 2], proj[3, 2] = 1 / tan_fovx, 1 / tan_fovy, 1.0, 1.0
+    cam = Camera.from_matrices(np.eye(4), proj, np.zeros(3), tan_fovx, tan_fovy, width,
+                               height, device=dev)
+    return params, cam, groups
+
+
+def time_preprocess(torch, pre, params, cam, cfg) -> dict:
+    """The kernel's ms (its C call alone into a buffer made beforehand, and
+    its wrapper's) beside its byte bound and the plain version's, by CUDA
+    events at the scene's shapes."""
+    n = params.num_gaussians
+    out = torch.empty(pre.OUT_WORDS * n, device=params.means.device)
+    k = (min(cfg.sh_degree, 3) + 1) ** 2
+    nbytes = n * (12 + 12 + 16 + 4 + 1 + 12 * k + 4 * pre.OUT_WORDS)
+    res = dict(bytes=nbytes, bound_ms=bound(nbytes, 0)[0], kernel_ms=[], wrapper_ms=[])
+    for _ in range(2):
+        res["kernel_ms"].append(cuda_ms(torch, lambda: pre.launch(params, cam, cfg, out),
+                                        reps=50, warm=3))
+        res["wrapper_ms"].append(cuda_ms(torch, lambda: pre.preprocess_cuda(params, cam, cfg),
+                                         reps=50))
+    res["plain_ms"] = cuda_ms(torch, lambda: pre.preprocess_plain(params, cam, cfg), reps=5)
+    res["share_of_bound"] = res["bound_ms"] / min(res["kernel_ms"])
+    return res
+
+
+def phase_preprocess(torch, dev):
+    """The preprocess kernel (csrc/preprocess.cu) against preprocess_plain
+    under no_grad, on the card: the plain version's sums in the kernel's
+    order; garden and bicycle scale on three orbit poses (tight radius on
+    and off); the adversarial set over every SH degree, colour clamp,
+    tight radius on and off and scale_modifier 1 and 0.6; each field held
+    as PREPROCESS_EXACT / _ULP say. Timed at both scenes beside the byte
+    bound and the plain version. Then the route: LAUNCHES moves by one over
+    an eager no_grad frame and not over an eager train step; the kernel's
+    frame bit-equal to the plain version's; in profiler traces a replayed
+    render_auto frame runs the kernel once and no cat copy, and a compiled
+    train step never runs the kernel."""
+    from tpusplat_torch import RenderConfig, look_at_camera, random_scene
+    from tpusplat_torch.bench.profile_detail import CONFIGS
+    from tpusplat_torch.ops import preprocess as pre
+    from tpusplat_torch.render import compile_render, render_auto, render_stages
+    from tpusplat_torch.train import step as tstep
+
+    t0 = time.perf_counter()
+    problems, res = [], dict(sum_orders=check_sum_orders(torch, dev))
+    for k, v in res["sum_orders"].items():
+        if v and not k.endswith("_sequential"):
+            problems.append(f"torch.sum's order on the card: {k} differs in {v} rows")
+
+    with torch.no_grad():
+        for label in PREPROCESS_SCENES:
+            s = CONFIGS[label]
+            params = random_scene(s["n"], seed=3, sh_degree=s["sh"], scale_range=s["srange"],
+                                  extent=4.0, device=dev)
+            cams = orbit_cameras(look_at_camera, [0.0, 0.5, 9.0], [0.0, 0.0, 0.0], s["w"],
+                                 s["h"], 60.0, PREPROCESS_POSES, dev)
+            worst = []
+            for tight in (True, False):
+                cfg = RenderConfig(sh_degree=s["sh"], tight_radius=tight)
+                for i, cam in enumerate(cams):
+                    got = pre.preprocess_cuda(params, cam, cfg)
+                    want = pre.preprocess_plain(params, cam, cfg)
+                    worst.append(dict(tight=tight, pose=i,
+                                      visible=int((want.ntiles > 0).sum()),
+                                      **compare_processed(torch, f"{label} pose {i} tight "
+                                                          f"{tight}", got, want, problems)))
+                    del got, want
+            res[label] = dict(n=s["n"], width=s["w"], height=s["h"], checks=worst,
+                              times=time_preprocess(
+                                  torch, pre, params, cams[0],
+                                  RenderConfig(sh_degree=s["sh"], tight_radius=True)))
+            del params
+            torch.cuda.empty_cache()
+
+        params, cam, groups = adversarial_gaussians(torch, dev, 1280, 720, 0.6, seed=7)
+        adversarial, hits = [], {}
+        for degree in range(4):
+            for clamp in ("red", "all", "none"):
+                for tight in (False, True):
+                    for modifier in (1.0, 0.6):
+                        cfg = RenderConfig(sh_degree=degree, color_clamp=clamp,
+                                           tight_radius=tight, scale_modifier=modifier)
+                        got = pre.preprocess_cuda(params, cam, cfg)
+                        want = pre.preprocess_plain(params, cam, cfg)
+                        what = f"adversarial sh {degree} {clamp} tight {tight} x{modifier}"
+                        adversarial.append(dict(sh_degree=degree, clamp=clamp, tight=tight,
+                                                scale_modifier=modifier,
+                                                **compare_processed(torch, what, got, want,
+                                                                    problems)))
+                        if degree == 3 and clamp == "red" and modifier == 1.0:
+                            hits[f"tight {tight}"] = {
+                                name: dict(culled=int((want.ntiles[lo:hi] == 0).sum()),
+                                           visible=int((want.ntiles[lo:hi] > 0).sum()))
+                                for name, (lo, hi) in groups.items()}
+        for name in ("depth", "det", "opacity"):
+            if not hits["tight True"][name]["culled"] or not hits["tight True"][name]["visible"]:
+                problems.append(f"adversarial group {name} culls none or all: {hits}")
+        res["adversarial"] = dict(n=params.num_gaussians, groups=groups, culls=hits,
+                                  checks=adversarial)
+        del params
+
+    # The route: LAUNCHES, then the kernel by name in profiler traces.
+    s = CONFIGS["mid"]
+    params = random_scene(s["n"], seed=4, sh_degree=3, scale_range=s["srange"], extent=4.0,
+                          device=dev)
+    cam = look_at_camera([0.0, 0.5, 9.0], [0.0, 0.0, 0.0], s["w"], s["h"], fov_deg=60.0,
+                         device=dev)
+    cfg = RenderConfig(sh_degree=3, tight_radius=True, max_per_tile=4096)
+    target = torch.rand((s["h"], s["w"], 3), generator=torch.Generator(device=dev)
+                        .manual_seed(2), device=dev)
+    opt = tstep.make_optimizer(scene_extent=4.0)
+    state = tstep.create_train_state(params)
+    route = {}
+    pre.LAUNCHES = 0
+    with torch.no_grad():
+        render_stages(params, cam, cfg)
+    route["eager_no_grad_frame"] = pre.LAUNCHES
+    pre.LAUNCHES = 0
+    render_stages(params, cam, cfg)  # grad enabled, nothing requires grad
+    route["eager_frame"] = pre.LAUNCHES
+    pre.LAUNCHES = 0
+    tstep.train_step(state, cam, target, cfg, opt)
+    route["eager_train_step"] = pre.LAUNCHES
+    # The same frame through the kernel and, with a leaf requiring grad,
+    # through the plain version: the blend gathers from the kernel's table
+    # as it lies, from the plain fields' concatenation; the images agree.
+    with torch.no_grad():
+        img_k, aux_k = render_stages(params, cam, cfg)
+    leaf = dataclasses.replace(params, means=params.means.detach().requires_grad_(True))
+    img_p, aux_p = render_stages(leaf, cam, cfg)
+    for name, a, b in (("image", img_k, img_p.detach()),
+                       ("instances", aux_k["num_instances"], aux_p["num_instances"])):
+        if not torch.equal(a, b):
+            problems.append(f"route: the kernel's frame and the plain one differ in {name}")
+    route["frames_bit_equal"] = torch.equal(img_k, img_p.detach())
+    render = compile_render()
+    render_auto(params, cam, cfg, compiled=render)  # the capture
+    _, ops = traced_device_ops(torch, lambda: render_auto(params, cam, cfg, compiled=render))
+    route["replayed_frame_traced"] = port_launches(ops)["preprocess"]
+    route["replayed_frame_cat_copies"] = sum(v for k, v in ops.items() if "CatArray" in k)
+    del render
+    step = tstep.compile_train_step()
+    state, _ = step(state, cam, target, cfg, opt)  # the capture
+    (state, _), traced = traced_launches(torch, lambda: step(state, cam, target, cfg, opt))
+    route["replayed_train_step_traced"] = traced["preprocess"]
+    route["replayed_train_step_other_kernels"] = {k: v for k, v in traced.items()
+                                                  if k != "preprocess"}
+    step.clear()
+    want = dict(eager_no_grad_frame=1, eager_frame=1, eager_train_step=0,
+                replayed_frame_traced=1, replayed_frame_cat_copies=0,
+                replayed_train_step_traced=0)
+    for k, v in want.items():
+        if route[k] != v:
+            problems.append(f"route: {k} launched the kernel {route[k]} times, not {v}")
+    res["route"] = route
+    log(phase="preprocess", seconds=time.perf_counter() - t0, problems=problems[:40], **res)
+    if problems:
+        fail(f"preprocess: {len(problems)} problems, first {problems[:5]}")
+    return res
+
+
 TRACE_FRAME = ["preprocess", "binning", "blend", "end"]
 TRACE_STEP = ["preprocess", "binning", "blend", "loss", "blend_bwd", "preprocess_bwd", "adam",
               "writeback", "end"]
@@ -961,7 +1302,7 @@ def phase_garden_serving(torch, dev, params, cams, cfg):
     del img, aux  # as the frame before the capture, the frames hold no block
     for when in ("after the capture", "after the capture, again"):
         profiled_frame(when)  # the graph still held, as a viewer holds it between frames
-    launches = dict(emission=0, forward_blend=0)
+    launches = dict(emission=0, forward_blend=0, preprocess=0)
     for i, cam in enumerate(cams):
         _, traced = traced_launches(torch, lambda cam=cam: render_auto(params, cam, cfg,
                                                                        compiled=render))
@@ -1073,8 +1414,9 @@ COMPILED_ITERS, FORWARD_ATOL, FORWARD_RTOL = 10, 3e-5, 1e-4
 KERNEL_SYMBOLS = dict(emission="emit_kernel", forward_blend="forward_kernel",
                       backward_blend="backward_kernel", segment_reduce="segment_reduce_kernel",
                       segment_reduce_targets="targets_kernel",
-                      segment_reduce_multirange="multirange_kernel")
-PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+)\(")
+                      segment_reduce_multirange="multirange_kernel",
+                      preprocess="preprocess_kernel")
+PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+)(?:<[^(]*>)?\(")
 
 
 def traced_launches(torch, fn):
@@ -1083,6 +1425,25 @@ def traced_launches(torch, fn):
     in the trace. A graph replay runs no wrapper, so the wrappers' counters
     do not see it; the trace does. Fails if the window recorded no device
     activity at all."""
+    out, names = traced_device_ops(torch, fn)
+    if not names:
+        fail("traced_launches: the profiler recorded no device activity")
+    return out, port_launches(names)
+
+
+def port_launches(names: collections.Counter) -> dict:
+    """Each port kernel's launches among device operations counted by name."""
+    seen = collections.Counter()
+    for name, count in names.items():
+        m = PORT_KERNEL.match(name)
+        if m:
+            seen[m.group(1)] += count
+    return {k: seen[sym] for k, sym in KERNEL_SYMBOLS.items()}
+
+
+def traced_device_ops(torch, fn):
+    """``fn()`` in a ``torch.profiler`` window: its result and the count of
+    each device operation (kernel or copy) by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1090,16 +1451,8 @@ def traced_launches(torch, fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    names = collections.Counter(e.name for e in prof.events()
-                                if e.device_type == DeviceType.CUDA)
-    if not names:
-        fail("traced_launches: the profiler recorded no device activity")
-    seen = collections.Counter()
-    for name, count in names.items():
-        m = PORT_KERNEL.match(name)
-        if m:
-            seen[m.group(1)] += count
-    return out, {k: seen[sym] for k, sym in KERNEL_SYMBOLS.items()}
+    return out, collections.Counter(e.name for e in prof.events()
+                                    if e.device_type == DeviceType.CUDA)
 
 
 def allocator(torch) -> dict:
@@ -2920,6 +3273,7 @@ def run(torch, dev, kind: str, smi: str) -> int:
     with torch.no_grad():
         phase_parity(torch, dev)
     phase_grad_6k(torch, dev)
+    phase_preprocess(torch, dev)
     phase_trace(torch, dev)
 
     params, cams, cfg = garden_inputs(torch, dev)

@@ -1,10 +1,22 @@
 """Per-Gaussian preprocessing: 3D covariance, EWA projection, SH color
 (counterpart of ``tpusplat/ops/preprocess.py``).
 
-One elementwise float32 pass over all N Gaussians, differentiable by
-autograd. It is plain PyTorch on both devices: the JAX package computes it
-outside Pallas, so there is no TPU kernel to port here. Every reference
-quirk is kept:
+One elementwise float32 pass over all N Gaussians. The JAX package computes
+it outside Pallas, so there is no TPU kernel to port here; the port adds
+one, ``csrc/preprocess.cu``, for the frames that need no gradient.
+:func:`preprocess` routes by what it can observe in its input:
+
+  * a CUDA call that autograd will record (gradients enabled and some
+    parameter or camera tensor requiring grad: the train steps and the
+    sharded steps) runs :func:`preprocess_plain`, the plain PyTorch version,
+    differentiable by autograd;
+  * every other CUDA call (``Session.draw``, ``render``, ``render_auto``,
+    the trainer's evals, the viewers) launches the kernel through
+    :func:`preprocess_cuda`, or raises on what it does not take;
+  * a CPU call runs :func:`preprocess_plain`.
+
+Both give the same outputs, the culls, radius, aabb and ntiles bit for bit
+on the card. Every reference quirk is kept:
   * view-space cull at z <= 0.2 (``preprocess.comp:135``)
   * Jacobian clamp at 1.3*tan_fov (``preprocess.comp:35-40``)
   * +0.3 dilation on the 2D covariance diagonal (``preprocess.comp:63-64``)
@@ -17,11 +29,13 @@ quirk is kept:
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
 from tpusplat_torch.config import SH_C0, SH_C1, SH_C2, SH_C3, RenderConfig
+from tpusplat_torch.ops import _build
 from tpusplat_torch.ops.activations import activate_opacity, activate_scales, normalize_quat
 from tpusplat_torch.types import Camera, GaussianParams
 
@@ -118,8 +132,10 @@ def eval_sh(means, sh, cam_pos, degree: int, clamp: str):
     return c
 
 
-def preprocess(params: GaussianParams, camera: Camera, cfg: RenderConfig) -> ProcessedGaussians:
-    """Project all Gaussians for one camera. Differentiable by autograd."""
+def preprocess_plain(params: GaussianParams, camera: Camera,
+                     cfg: RenderConfig) -> ProcessedGaussians:
+    """Project all Gaussians for one camera, in plain PyTorch.
+    Differentiable by autograd."""
     f32 = torch.float32
     means = params.means.to(f32)
 
@@ -243,3 +259,136 @@ def preprocess(params: GaussianParams, camera: Camera, cfg: RenderConfig) -> Pro
         ntiles=ntiles,
         radius=radius,
     )
+
+
+# C calls of the kernel since the last reset (chip_smoke.py reads it).
+LAUNCHES = 0
+CLAMP_MODES = {"red": 0, "all": 1, "none": 2}
+# Trailing shapes of the inputs (float32, alive bool), and which of them the
+# kernel reads with 16-byte loads.
+PARAM_SHAPES = dict(means=(3,), log_scales=(3,), quats=(4,), opacities=(), sh=(16, 3),
+                    alive=())
+CAMERA_SHAPES = dict(view=(4, 4), proj=(4, 4), cam_pos=(3,), tan_fovx=(), tan_fovy=())
+ALIGNED = ("quats", "sh")
+# Words a Gaussian of the kernel's output buffer, field by field: aabb [N, 4]
+# int32, the blend's [9, N] attribute table (uv, conic, opacity and color as
+# rows), depth, radius, ntiles (int32).
+OUT_WORDS = 16
+
+
+def preprocess(params: GaussianParams, camera: Camera, cfg: RenderConfig) -> ProcessedGaussians:
+    """Project all Gaussians for one camera: through :func:`preprocess_plain`
+    on the CPU and where autograd records the call (so gradients reach the
+    parameters and the camera), else through the kernel
+    (:func:`preprocess_cuda`)."""
+    if params.device.type == "cpu" or _records_grad(params, camera):
+        return preprocess_plain(params, camera, cfg)
+    return preprocess_cuda(params, camera, cfg)
+
+
+def _records_grad(params: GaussianParams, camera: Camera) -> bool:
+    """Whether autograd would record a call on these inputs."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (*_tensors(params, PARAM_SHAPES),
+                                  *_tensors(camera, CAMERA_SHAPES)))
+
+
+def _tensors(obj, shapes: dict) -> list:
+    return [getattr(obj, name) for name in shapes]
+
+
+def _kernel():
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.function("preprocess", "tpusplat_preprocess",
+                           [p] * 11 + [i] * 10 + [f] * 3 + [p, p])
+
+
+def check_inputs(params: GaussianParams, camera: Camera) -> None:
+    """Raise ``ValueError`` unless the inputs are what the kernel takes:
+    float32 (``alive`` bool), contiguous, shaped as ``GaussianParams`` and
+    ``Camera`` say, ``quats`` and ``sh`` 16-byte aligned, all on one CUDA
+    device."""
+    n = params.num_gaussians
+    named = [*zip(PARAM_SHAPES, _tensors(params, PARAM_SHAPES), PARAM_SHAPES.values()),
+             *zip(CAMERA_SHAPES, _tensors(camera, CAMERA_SHAPES), CAMERA_SHAPES.values())]
+    for name, t, trailing in named:
+        shape = (n, *trailing) if name in PARAM_SHAPES else trailing
+        dtype = torch.bool if name == "alive" else torch.float32
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"preprocess kernel: {name} must be contiguous {dtype} "
+                             f"{list(shape)}, got {t.dtype} {list(t.shape)}"
+                             f"{'' if t.is_contiguous() else ' not contiguous'}")
+        if name in ALIGNED and t.data_ptr() % 16:
+            raise ValueError(f"preprocess kernel: {name} must be 16-byte aligned")
+    dev = params.means.device
+    if dev.type != "cuda":
+        raise ValueError(f"preprocess kernel: no kernel for tensors on {dev}")
+    if any(t.device != dev for _, t, _ in named):
+        raise ValueError("preprocess kernel: the parameters and the camera must lie on one "
+                         f"device, got {sorted({str(t.device) for _, t, _ in named})}")
+    if camera.width <= 0 or camera.height <= 0:
+        raise ValueError(f"preprocess kernel: frame {camera.width}x{camera.height}")
+
+
+def preprocess_cuda(params: GaussianParams, camera: Camera,
+                    cfg: RenderConfig) -> ProcessedGaussians:
+    """:func:`preprocess_plain`'s outputs from one launch of the kernel
+    (``csrc/preprocess.cu``): no gradient flows through them. Raises
+    ``ValueError`` on inputs the kernel does not take (:func:`check_inputs`)."""
+    check_inputs(params, camera)
+    n = params.num_gaussians
+    out = torch.empty(OUT_WORDS * n, dtype=torch.float32, device=params.means.device)
+    launch(params, camera, cfg, out)
+    return output_fields(out, n)
+
+
+def launch(params: GaussianParams, camera: Camera, cfg: RenderConfig,
+           out: torch.Tensor) -> None:
+    """One C call of the kernel into ``out`` ([16 N] float32) on checked
+    inputs, counted in ``LAUNCHES``."""
+    global LAUNCHES
+    tiles_x, tiles_y = cfg.tile_grid(camera.width, camera.height)
+    ptrs = [t.data_ptr() for t in (*_tensors(params, PARAM_SHAPES),
+                                   *_tensors(camera, CAMERA_SHAPES))]
+    err = _kernel()(
+        *ptrs, params.num_gaussians, camera.width, camera.height, cfg.tile_w, cfg.tile_h,
+        tiles_x, tiles_y, min(max(cfg.sh_degree, 0), 3),  # the degrees the plain basis has
+        CLAMP_MODES[cfg.color_clamp], int(cfg.tight_radius),
+        cfg.scale_modifier, cfg.z_near_cull, cfg.dilation, out.data_ptr(),
+        _build.stream_ptr(out.device))
+    _build.check(err, "preprocess kernel")
+    LAUNCHES += 1
+
+
+def output_fields(out: torch.Tensor, n: int) -> ProcessedGaussians:
+    """The kernel's output buffer as :class:`ProcessedGaussians`, each field
+    a view of it: uv, conic, opacity and color are row views of the [9, N]
+    table (uv and conic and color transposed, so not contiguous), the rest
+    contiguous."""
+    ints = out.view(torch.int32)
+    table = out[4 * n:13 * n].view(9, n)
+    return ProcessedGaussians(
+        aabb=ints[:4 * n].view(n, 4),
+        uv=table[0:2].T,
+        conic=table[2:5].T,
+        opacity=table[5],
+        color=table[6:9].T,
+        depth=out[13 * n:14 * n],
+        radius=out[14 * n:15 * n],
+        ntiles=ints[15 * n:16 * n],
+    )
+
+
+def attribute_table(pg: ProcessedGaussians) -> torch.Tensor:
+    """[9, N]: uv, conic, opacity and color as rows, the table the blend
+    gathers from. Where the four fields are views of the rows of one such
+    table, as the kernel's are (:func:`output_fields`), that table is
+    returned as it lies; otherwise the fields are concatenated into a new
+    one (the plain version's, autograd's graph included)."""
+    rows = (pg.uv.T, pg.conic.T, pg.opacity[None, :], pg.color.T)
+    n, first = pg.opacity.shape[0], rows[0]
+    lies = all(r.is_contiguous() and r.untyped_storage().data_ptr()
+               == first.untyped_storage().data_ptr()
+               and r.data_ptr() == first.data_ptr() + k * n * first.element_size()
+               for r, k in zip(rows, (0, 2, 5, 6)))
+    return first.as_strided((9, n), (n, 1)) if lies else torch.cat(rows, dim=0)

@@ -37,7 +37,7 @@ from tpusplat_torch import trace
 from tpusplat_torch.config import RenderConfig
 from tpusplat_torch.ops import _build
 from tpusplat_torch.ops.binning import BinnedInstances
-from tpusplat_torch.ops.preprocess import ProcessedGaussians
+from tpusplat_torch.ops.preprocess import ProcessedGaussians, attribute_table
 from tpusplat_torch.ops.segment_reduce import segment_reduce
 
 ATTR_ROWS = 9
@@ -65,9 +65,7 @@ def pack_instances(pg: ProcessedGaussians, binned: BinnedInstances) -> torch.Ten
     """The [9, C] attribute slab of the sorted instances (differentiable).
     The backward stamps ``preprocess_bwd`` once the table's gradient is
     reduced (:func:`tpusplat_torch.trace.grad_stage`)."""
-    table = torch.cat(
-        [pg.uv.T, pg.conic.T, pg.opacity[None, :], pg.color.T], dim=0
-    )  # [9, N]
+    table = attribute_table(pg)  # [9, N]
     return _PackGather.apply(trace.grad_stage(table, "preprocess_bwd"), binned.gauss_id)
 
 
