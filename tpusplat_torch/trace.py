@@ -17,7 +17,8 @@ eval render's, never split its sequence. The orders:
   preprocess_bwd, adam, writeback, end. ``blend_bwd`` and ``preprocess_bwd``
   are stamped in the backward pass (:func:`grad_stage`), when the gradient
   of the image and of the gathered table are ready; ``writeback`` precedes
-  the copy of the donated state into its buffers.
+  the copy of the donated state into its buffers;
+- a densify round: densify, end.
 
 :func:`read` synchronises once and returns the ring as :class:`Stamps`;
 :meth:`Stamps.units` cuts it into the replays of one step, each with its
@@ -33,6 +34,14 @@ clock: the least offset of a few eager anchor launches, so a host span maps
 onto the device clock within a launch latency. The two clocks drift apart
 by about a ppm, so every capture anchors too, and
 :meth:`Stamps.offset_at` interpolates between the anchors around a moment.
+
+**Round counters (device).** Each densify round writes its counts
+(:data:`ROUND_COUNTS`: candidates, granted, cloned, split, pruned, alive
+after) with :func:`count_round` into a small block on the state's device,
+a ring of :data:`ROUND_RING` rows with a device-side head, so that a
+compiled round writes them at every replay and nothing is read on the
+host; :func:`rounds` synchronises and returns them, as :func:`read` does
+the stamps.
 
 Both halves are on by default. :data:`enabled` is read when a stamp or span
 is made: set it false and new graphs hold no stamps and spans record
@@ -58,11 +67,13 @@ from tpusplat_torch.ops import _build
 enabled = True
 
 STAGES = ("preprocess", "binning", "blend", "loss", "blend_bwd", "preprocess_bwd", "adam",
-          "writeback", "end")
+          "writeback", "end", "densify")
 _STAGE_ID = {name: i for i, name in enumerate(STAGES)}
 RING = 1 << 16  # stamps the device ring and the host ring hold (kRing in csrc/stamp.cu)
 SPAN_RING = 1 << 16  # spans the host ring holds
 ANCHOR_TRIES = 5
+ROUND_COUNTS = ("candidates", "granted", "cloned", "split", "pruned", "alive")
+ROUND_RING = 1024  # rounds a device's counter block holds
 UNTAGGED, PROFILED = 0, 1  # eager stamps; render_profiled's
 _TAGS = itertools.count(2)  # compiled steps'
 
@@ -71,7 +82,7 @@ Span = collections.namedtuple("Span", "index name start_ns end_ns parent unit")
 
 class _HostRings:
     """The host's rings: spans, the stack of open spans, the CPU's stamps and
-    the clocks' anchors."""
+    the clocks' anchors; and the round counters' block of each device."""
 
     def __init__(self, stamps: int = RING, spans: int = SPAN_RING):
         self.stamps = collections.deque(maxlen=stamps)  # (t_ns, stage id, tag)
@@ -81,6 +92,7 @@ class _HostRings:
         self.span_head = 0  # spans ever opened
         self.units = 0  # outermost spans ever opened
         self.anchors = collections.deque(maxlen=64)  # (host_ns, offset_ns), oldest first
+        self.rounds: dict = {}  # device -> (block [ROUND_RING, counts] int64, head [1] int64)
 
 
 _host = _HostRings()
@@ -127,10 +139,12 @@ def _library():
 
 
 def prepare(device) -> None:
-    """Load the stamp kernels for ``device`` before a capture, and anchor
-    the clocks (a no-op on the CPU)."""
+    """Load the stamp kernels for ``device`` before a capture, anchor the
+    clocks and make the device's round counters (a no-op on the CPU), so
+    that a capture allocates none of them."""
     if device.type == "cuda":
         anchor(device)
+        _round_block(device)
 
 
 def stage(name: str, device) -> None:
@@ -319,6 +333,58 @@ def anchor(device=None, tries: int = ANCHOR_TRIES) -> int:
     offset = least_offset(pairs)
     _host.anchors.append((pairs[0][0], offset))
     return offset
+
+
+# -- round counters --
+
+
+def _device_key(device) -> tuple:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device.type, device.index
+
+
+def _round_block(device):
+    key = _device_key(device)
+    if key not in _host.rounds:
+        dev = torch.device(*key)
+        _host.rounds[key] = (torch.zeros((ROUND_RING, len(ROUND_COUNTS)), dtype=torch.int64,
+                                         device=dev),
+                             torch.zeros(1, dtype=torch.int64, device=dev))
+    return _host.rounds[key]
+
+
+def count_round(device, **counts) -> None:
+    """Write one densify round's counts, 0-d tensors named by
+    :data:`ROUND_COUNTS`, into ``device``'s counter block: device operations
+    alone (the row's slot is the device-side head modulo the ring), so that
+    a compiled round writes them at each replay. Nothing is written while
+    tracing is off or a compiled step warms up."""
+    if not enabled or _quiet[0]:
+        return
+    block, head = _round_block(device)
+    row = torch.stack([counts[k].to(torch.int64) for k in ROUND_COUNTS])
+    block.index_copy_(0, head % ROUND_RING, row[None])
+    head.add_(1)
+
+
+def rounds(device, last: int | None = None) -> list:
+    """Synchronise and return the counts of the rounds ``device`` has
+    written, oldest first, each a dict of :data:`ROUND_COUNTS` and ``round``
+    (its number on the device, from 0): the last ``min(written,
+    ROUND_RING, last)`` of them."""
+    key = _device_key(device)
+    if key not in _host.rounds:
+        return []
+    block, head = _host.rounds[key]
+    if key[0] == "cuda":
+        torch.cuda.synchronize(key[1])
+    n = int(head[0])
+    rows = block.cpu().tolist()
+    keep = min(n, ROUND_RING) if last is None else min(n, ROUND_RING, last)
+    return [dict(zip(ROUND_COUNTS, rows[seq % ROUND_RING]), round=seq)
+            for seq in range(n - keep, n)]
 
 
 # -- host spans --

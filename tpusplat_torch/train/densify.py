@@ -18,6 +18,10 @@ Recipe (upstream 3DGS semantics, as in the JAX package):
     replaces the source slot, one takes a free slot;
   * prune: opacity below min_opacity (plus the optional size caps).
 
+Each round writes its counts (candidates, granted, cloned, split, pruned,
+alive after) into the tracer's round counters (``trace.count_round``), on
+the device; the compiled round also stamps ``densify`` at its start.
+
 The split noise is drawn from a key of ``jax.random``'s threefry stream
 (``tpusplat_torch.train.prng``), as the JAX package draws it, so the same
 key gives the same split positions; ``noise``/``noise2`` may be passed
@@ -32,6 +36,7 @@ import struct
 
 import torch
 
+from tpusplat_torch import trace
 from tpusplat_torch.compiled import compile_step
 from tpusplat_torch.ops.activations import normalize_quat
 from tpusplat_torch.train import prng
@@ -152,7 +157,7 @@ def densify_and_prune(
     opacities = _scatter(params.opacities, target, params.opacities)
     sh = _scatter(params.sh, target, params.sh)
     ones = torch.ones_like(alive)
-    alive_new = _scatter(alive, target, ones)
+    grown = _scatter(alive, target, ones)
 
     # Split sources move to their second sample and shrink in place.
     src_split = split_m & granted
@@ -166,13 +171,16 @@ def densify_and_prune(
                          > dcfg.max_world_scale * scene_extent)
     if dcfg.max_screen_radius > 0:
         prune = prune | (state.max_radii > dcfg.max_screen_radius)
-    alive_new = alive_new & ~prune
+    alive_new = grown & ~prune
 
     new_params = GaussianParams(means=means, log_scales=log_scales, quats=quats,
                                 opacities=opacities, sh=sh, alive=alive_new)
 
     # Fresh Adam moments for touched or dead slots.
     touched = _scatter(src_split | ~alive_new, target, ones)
+    trace.count_round(dev, candidates=cand.sum(), granted=granted.sum(),
+                      cloned=(granted & ~split_m).sum(), split=src_split.sum(),
+                      pruned=(grown & prune).sum(), alive=alive_new.sum())
     return TrainState(
         params=new_params,
         mu=_zero_rows(state.mu, touched),
@@ -187,7 +195,9 @@ def densify_and_prune(
 
 def _round(state: TrainState, key: torch.Tensor, dcfg: DensifyConfig,
            scene_extent: float) -> TrainState:
-    # The module's densify_and_prune, looked up at each call.
+    # The round's stamp, then the module's densify_and_prune, looked up at
+    # each call.
+    trace.stage("densify", state.params.device)
     return densify_and_prune(state, key, dcfg, scene_extent)
 
 

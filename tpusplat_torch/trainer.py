@@ -50,7 +50,9 @@ graph that the run owns (``render.compile_render``). The sharded steps run
 eagerly. The loop records the host spans ``train_step``, ``poll`` (the
 counters' read, one step late), ``densify`` and ``eval``
 (:mod:`tpusplat_torch.trace`); ``--watchdog-secs`` prints the last of them
-on a stall.
+on a stall. After each round a ``densify`` line gives the step and the
+round's counters (``trace.ROUND_COUNTS``: candidates, granted, cloned,
+split, pruned, alive after), read from the device once the round is done.
 """
 
 from __future__ import annotations
@@ -344,6 +346,8 @@ def _train(args, dev, mesh) -> dict:
                     else:  # on the whole state, the same draws on every rank
                         whole = densify(sharded.gather_state(state, mesh))
                         state = sharded.shard_state(whole, mesh)
+                    counts = trace.rounds(dev, last=1) if trace.enabled and lead else []
+                _log(densify=step, **(counts[-1] if counts else {}))
             if args.opacity_reset_every and step - last_reset >= args.opacity_reset_every \
                     and step <= densify_until:
                 last_reset = step
