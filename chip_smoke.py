@@ -40,12 +40,27 @@ Phases, one output line each; any failure exits non-zero:
      bit-equal, uv, conic, depth and opacity within 2 ulp, colour within
      1e-6; the kernel's ms (its C call alone and its wrapper) beside its
      byte bound and the plain version's ms; the route: ``LAUNCHES`` moves by
-     one over an eager frame and not over an eager train step, and by name
-     in profiler traces a replayed ``render_auto`` frame runs the kernel
-     once, a compiled train step never (alone: python3 -c "import torch,
+     one over an eager frame and over an eager train step, and by name in
+     profiler traces a replayed ``render_auto`` frame and a compiled train
+     step each run the kernel once (alone: python3 -c "import torch,
      chip_smoke as cs; d = torch.device('cuda'); cs.start(torch,
      torch.cuda.get_device_name(0), cs.nvidia_smi()); cs.phase_preprocess(
      torch, d)");
+ 4c. preprocess_bwd: the backward preprocess kernel (``csrc/preprocess.cu``,
+     ``preprocess_backward_cuda``) against autograd of ``preprocess_plain``
+     and against ``preprocess_backward_plain`` on the card, on a seeded
+     table gradient (every 7th Gaussian's zero): garden and bicycle scale,
+     and 4a's adversarial set over every SH degree, colour clamp, tight
+     radius on and off and scale_modifier 1 and 0.6; each gradient's gap
+     normalised by its largest magnitude within 2e-6 (bit-equality
+     reported), two launches bit-equal; its ms (its C call alone and its
+     wrapper) beside its byte bound, the plain version's and autograd's
+     backward ms; an eager train step moves ``LAUNCHES`` and
+     ``BACKWARD_LAUNCHES`` by one each, a replayed compiled step runs each
+     kernel once by name and gives the eager steps' state bit for bit; the
+     sharded step's exchange table (``pack_exchange_table``) on one rank,
+     its parameters' gradients against the plain route's (alone: as 4a,
+     with ``cs.phase_preprocess_bwd(torch, d)``);
  4b. trace: the tracer's stamp kernel (``csrc/stamp.cu``) at the parity
      shapes: ``%globaltimer`` read by 4000 eager and 2000 captured stamps
      (steps, share of zero steps, monotonic), the anchor's spread over
@@ -65,7 +80,9 @@ Phases, one output line each; any failure exits non-zero:
   6. garden training: the eager ``train_step`` at the same shapes against
      renders of a second random scene, one warm-up step and three timed
      steps with the regrow retry, counters reset just before and read just
-     after; then one step split into forward, backward and Adam;
+     after (each call moves every kernel's, the preprocess forward's and
+     backward's by exactly one); then one step split into forward,
+     backward and Adam;
  6b. compiled: each compiled entry point at the garden shapes against its
      eager function on the same inputs (``tpusplat_torch.compiled``): three
      ``render_auto`` frames against ``render_stages`` and a forced regrow
@@ -76,7 +93,8 @@ Phases, one output line each; any failure exits non-zero:
      rtol 1e-4) or the sharded steps' (parameters 2e-6, moments 1e-4 of
      their largest), and those outputs are named; one capture and a replay
      a call; each compiled call in a profiler window, each kernel counted
-     from the trace at least once a call, the wrappers' counters (reset
+     from the trace at least once a call (a train step's the preprocess
+     forward and backward kernels too), the wrappers' counters (reset
      just before) still at a replay; eager and compiled times in
      turns (host-differenced and CUDA events), the capture seconds, and a
      ``profile_window`` over three compiled train steps;
@@ -868,12 +886,14 @@ def compare_processed(torch, what, got, want, problems) -> dict:
 
 
 def check_sum_orders(torch, dev, n=1 << 20) -> dict:
-    """Whether torch.sum on the card adds the plain version's three sums in
-    the order the kernel assumes: a [n, 4] row as (x0 + x2) + (x1 + x3), a
-    [n, 3] row as (x0 + x2) + x1, and [n, k, 3] over k into four
-    interleaved accumulators. Counts the rows that differ (0 each, or the
-    kernel's colour, radius and boxes can differ); the sequential order's
-    count beside each shows that the probe sees an order at all."""
+    """Whether torch.sum on the card adds the plain versions' sums in the
+    order the kernels assume: a [n, 4] row as (x0 + x2) + (x1 + x3), a
+    [n, 3] row as (x0 + x2) + x1, [n, k, 3] over k into four interleaved
+    accumulators, and (the backward's) [n, 16, 3] over its last axis as
+    (x0 + x2) + x1; and whether pow(3) is (x x) x. Counts the rows that
+    differ (0 each, or the kernels' outputs can differ from the plain
+    versions'); the sequential order's count beside each shows that the
+    probe sees an order at all."""
     g = torch.Generator(device=dev).manual_seed(5)
     x4 = torch.randn(n, 4, generator=g, device=dev)
     x3 = torch.randn(n, 3, generator=g, device=dev)
@@ -882,6 +902,12 @@ def check_sum_orders(torch, dev, n=1 << 20) -> dict:
         quat_sequential=int((x4.sum(-1) != ((x4[:, 0] + x4[:, 1]) + x4[:, 2]) + x4[:, 3]).sum()),
         dir=int((x3.sum(-1) != (x3[:, 0] + x3[:, 2]) + x3[:, 1]).sum()),
         dir_sequential=int((x3.sum(-1) != (x3[:, 0] + x3[:, 1]) + x3[:, 2]).sum()))
+    # the backward's: [n, 16, 3] over RGB as (c0 + c2) + c1, and pow(3)
+    rgb = torch.randn(n // 16, 16, 3, generator=g, device=dev)
+    res["rgb"] = int((rgb.sum(-1) != (rgb[..., 0] + rgb[..., 2]) + rgb[..., 1]).sum())
+    res["rgb_sequential"] = int(
+        (rgb.sum(-1) != (rgb[..., 0] + rgb[..., 1]) + rgb[..., 2]).sum())
+    res["pow3"] = int((x3.pow(3) != (x3 * x3) * x3).sum())
     for k in (4, 9, 16):
         xs = torch.randn(n, k, 3, generator=g, device=dev)
         acc = [torch.zeros(n, 3, device=dev) for _ in range(4)]
@@ -1008,10 +1034,10 @@ def phase_preprocess(torch, dev):
     tight radius on and off and scale_modifier 1 and 0.6; each field held
     as PREPROCESS_EXACT / _ULP say. Timed at both scenes beside the byte
     bound and the plain version. Then the route: LAUNCHES moves by one over
-    an eager no_grad frame and not over an eager train step; the kernel's
-    frame bit-equal to the plain version's; in profiler traces a replayed
-    render_auto frame runs the kernel once and no cat copy, and a compiled
-    train step never runs the kernel."""
+    an eager no_grad frame and over an eager train step; the kernel's frame
+    bit-equal to the plain version's (a camera tensor requiring grad); in
+    profiler traces a replayed render_auto frame runs the kernel once and no
+    cat copy, and a compiled train step runs it once."""
     from tpusplat_torch import RenderConfig, look_at_camera, random_scene
     from tpusplat_torch.bench.profile_detail import CONFIGS
     from tpusplat_torch.ops import preprocess as pre
@@ -1098,13 +1124,13 @@ def phase_preprocess(torch, dev):
     pre.LAUNCHES = 0
     tstep.train_step(state, cam, target, cfg, opt)
     route["eager_train_step"] = pre.LAUNCHES
-    # The same frame through the kernel and, with a leaf requiring grad,
-    # through the plain version: the blend gathers from the kernel's table
-    # as it lies, from the plain fields' concatenation; the images agree.
+    # The same frame through the kernel and, with a camera tensor requiring
+    # grad, through the plain version: the blend gathers from the kernel's
+    # table as it lies, from the plain fields' concatenation; the images agree.
     with torch.no_grad():
         img_k, aux_k = render_stages(params, cam, cfg)
-    leaf = dataclasses.replace(params, means=params.means.detach().requires_grad_(True))
-    img_p, aux_p = render_stages(leaf, cam, cfg)
+    leaf = dataclasses.replace(cam, view=cam.view.detach().requires_grad_(True))
+    img_p, aux_p = render_stages(params, leaf, cfg)
     for name, a, b in (("image", img_k, img_p.detach()),
                        ("instances", aux_k["num_instances"], aux_p["num_instances"])):
         if not torch.equal(a, b):
@@ -1123,9 +1149,9 @@ def phase_preprocess(torch, dev):
     route["replayed_train_step_other_kernels"] = {k: v for k, v in traced.items()
                                                   if k != "preprocess"}
     step.clear()
-    want = dict(eager_no_grad_frame=1, eager_frame=1, eager_train_step=0,
+    want = dict(eager_no_grad_frame=1, eager_frame=1, eager_train_step=1,
                 replayed_frame_traced=1, replayed_frame_cat_copies=0,
-                replayed_train_step_traced=0)
+                replayed_train_step_traced=1)
     for k, v in want.items():
         if route[k] != v:
             problems.append(f"route: {k} launched the kernel {route[k]} times, not {v}")
@@ -1133,6 +1159,205 @@ def phase_preprocess(torch, dev):
     log(phase="preprocess", seconds=time.perf_counter() - t0, problems=problems[:40], **res)
     if problems:
         fail(f"preprocess: {len(problems)} problems, first {problems[:5]}")
+    return res
+
+
+# The backward preprocess phase: its yardstick, the normalised gap of each
+# gradient (the blend kernels' measure), and its byte count a Gaussian
+# besides the SH rows (means, log_scales, quats, opacity and the table's 9
+# rows read; means, log_scales, quats and opacity written).
+PREPROCESS_BWD_GAP = 2e-6
+PREPROCESS_BWD_BYTES = 12 + 12 + 16 + 4 + 36 + 12 + 12 + 16 + 4
+
+
+def table_cotangent(torch, n, dev, seed):
+    """A seeded [9, n] gradient of the attribute table, zero for every 7th
+    Gaussian (as a culled one's is)."""
+    g = torch.randn(9, n, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    g[:, ::7] = 0.0
+    return g
+
+
+def grad_gaps(torch, got: dict, want: dict) -> dict:
+    """Per gradient: max |got - want| over max |want|, and bit-equality."""
+    return {k: dict(gap=float((got[k] - want[k]).abs().max() / want[k].abs().max().clamp_min(
+                        1e-30)), equal=torch.equal(got[k], want[k])) for k in want}
+
+
+def plain_autograd(torch, pre, params, cam, cfg, d_table):
+    """Autograd of preprocess_plain: the five parameters' gradients from
+    the table's."""
+    leaves = {k: getattr(params, k).detach().requires_grad_(True) for k in GRAD_FIELDS}
+    table = pre.attribute_table(pre.preprocess_plain(dataclasses.replace(params, **leaves),
+                                                     cam, cfg))
+    return dict(zip(GRAD_FIELDS, torch.autograd.grad(table, list(leaves.values()), d_table)))
+
+
+def check_preprocess_bwd(torch, pre, what, params, cam, cfg, seed, problems) -> dict:
+    """The backward kernel twice (bit-equal) against autograd of the plain
+    forward and against preprocess_backward_plain; what breaks is appended
+    to ``problems``."""
+    d_table = table_cotangent(torch, params.num_gaussians, params.means.device, seed)
+    got = pre.preprocess_backward_cuda(params, cam, cfg, d_table)
+    again = pre.preprocess_backward_cuda(params, cam, cfg, d_table)
+    out = dict(repeatable=all(torch.equal(got[k], again[k]) for k in GRAD_FIELDS))
+    del again
+    out["autograd"] = grad_gaps(torch, got, plain_autograd(torch, pre, params, cam, cfg,
+                                                           d_table))
+    out["plain"] = grad_gaps(torch, got,
+                             pre.preprocess_backward_plain(params, cam, cfg, d_table))
+    if not out["repeatable"]:
+        problems.append(f"{what}: two launches differ")
+    for ref in ("autograd", "plain"):
+        bad = {k: v["gap"] for k, v in out[ref].items() if not v["gap"] <= PREPROCESS_BWD_GAP}
+        if bad:
+            problems.append(f"{what}: against {ref} {bad}")
+    return out
+
+
+def time_preprocess_bwd(torch, pre, params, cam, cfg) -> dict:
+    """The backward kernel's ms (its C call alone into buffers made
+    beforehand, and its wrapper's) beside its byte bound, the plain
+    version's and autograd's backward of the plain forward (the route the
+    train step took before the kernel), by CUDA events."""
+    n = params.num_gaussians
+    d_table = table_cotangent(torch, n, params.means.device, 1)
+    grads = {k: torch.empty_like(getattr(params, k)) for k in GRAD_FIELDS}
+    k = (min(cfg.sh_degree, 3) + 1) ** 2
+    nbytes = n * (PREPROCESS_BWD_BYTES + 12 * k + 192)
+    res = dict(bytes=nbytes, bound_ms=bound(nbytes, 0)[0], kernel_ms=[], wrapper_ms=[])
+    for _ in range(2):
+        res["kernel_ms"].append(cuda_ms(
+            torch, lambda: pre.launch_backward(params, cam, cfg, d_table, grads), reps=50,
+            warm=3))
+        res["wrapper_ms"].append(cuda_ms(
+            torch, lambda: pre.preprocess_backward_cuda(params, cam, cfg, d_table), reps=50))
+    res["plain_ms"] = cuda_ms(
+        torch, lambda: pre.preprocess_backward_plain(params, cam, cfg, d_table), reps=5)
+    leaves = {f: getattr(params, f).detach().requires_grad_(True) for f in GRAD_FIELDS}
+    table = pre.attribute_table(pre.preprocess_plain(dataclasses.replace(params, **leaves),
+                                                     cam, cfg))
+    res["autograd_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        table, list(leaves.values()), d_table, retain_graph=True), reps=5)
+    res["share_of_bound"] = res["bound_ms"] / min(res["kernel_ms"])
+    return res
+
+
+def phase_preprocess_bwd(torch, dev):
+    """The backward preprocess kernel on the card (phase 4c of the module
+    docstring)."""
+    from tpusplat_torch import RenderConfig, look_at_camera, random_scene
+    from tpusplat_torch.bench.profile_detail import CONFIGS
+    from tpusplat_torch.ops import preprocess as pre
+    from tpusplat_torch.parallel.compact_grad import pack_exchange_table
+    from tpusplat_torch.train import step as tstep
+    from tpusplat_torch.train.checkpoint import state_tensors
+
+    t0 = time.perf_counter()
+    problems, res = [], {}
+    for label in PREPROCESS_SCENES:
+        s = CONFIGS[label]
+        params = random_scene(s["n"], seed=3, sh_degree=s["sh"], scale_range=s["srange"],
+                              extent=4.0, device=dev)
+        cam = orbit_cameras(look_at_camera, [0.0, 0.5, 9.0], [0.0, 0.0, 0.0], s["w"], s["h"],
+                            60.0, PREPROCESS_POSES, dev)[1]
+        cfg = RenderConfig(sh_degree=s["sh"], tight_radius=True)
+        res[label] = dict(n=s["n"], width=s["w"], height=s["h"],
+                          check=check_preprocess_bwd(torch, pre, label, params, cam, cfg, 11,
+                                                     problems),
+                          times=time_preprocess_bwd(torch, pre, params, cam, cfg))
+        del params
+        torch.cuda.empty_cache()
+
+    params, cam, groups = adversarial_gaussians(torch, dev, 1280, 720, 0.6, seed=7)
+    worst = {}
+    for degree in range(4):
+        for clamp in ("red", "all", "none"):
+            for tight in (False, True):
+                for modifier in (1.0, 0.6):
+                    cfg = RenderConfig(sh_degree=degree, color_clamp=clamp,
+                                       tight_radius=tight, scale_modifier=modifier)
+                    what = f"adversarial sh {degree} {clamp} tight {tight} x{modifier}"
+                    out = check_preprocess_bwd(torch, pre, what, params, cam, cfg, degree,
+                                               problems)
+                    for ref in ("autograd", "plain"):
+                        for k, v in out[ref].items():
+                            w = worst.setdefault(f"{ref}.{k}", dict(gap=0.0, equal=True))
+                            w["gap"] = max(w["gap"], v["gap"])
+                            w["equal"] = w["equal"] and v["equal"]
+    res["adversarial"] = dict(n=params.num_gaussians, groups=groups, worst=worst)
+    del params
+
+    # The route: one forward and one backward launch an eager train step; a
+    # replayed compiled step runs each kernel once and gives eager's state.
+    s = CONFIGS["mid"]
+    params = random_scene(s["n"], seed=4, sh_degree=3, scale_range=s["srange"], extent=4.0,
+                          device=dev)
+    cams = orbit_cameras(look_at_camera, [0.0, 0.5, 9.0], [0.0, 0.0, 0.0], s["w"], s["h"],
+                         60.0, 3, dev)
+    cfg = RenderConfig(sh_degree=3, tight_radius=True, max_per_tile=4096)
+    target = torch.rand((s["h"], s["w"], 3), generator=torch.Generator(device=dev)
+                        .manual_seed(2), device=dev)
+    opt = tstep.make_optimizer(scene_extent=4.0)
+    pre.LAUNCHES = pre.BACKWARD_LAUNCHES = 0
+    tstep.train_step(tstep.create_train_state(params), cams[0], target, cfg, opt)
+    route = dict(eager_step=dict(forward=pre.LAUNCHES, backward=pre.BACKWARD_LAUNCHES))
+
+    def eager_steps():
+        state, losses = tstep.create_train_state(params), []
+        for cam in cams:
+            state, m = tstep.train_step(state, cam, target, cfg, opt)
+            losses.append(m["loss"])
+        return {**state_tensors(state), "loss": torch.stack(losses)}
+
+    eager, again = eager_steps(), eager_steps()
+    repeatable = {k: torch.equal(v, again[k]) for k, v in eager.items()}
+    del again
+    step = tstep.compile_train_step()
+    state, losses, traced = tstep.create_train_state(params), [], []
+    for cam in cams:
+        (state, m), launches = traced_launches(
+            torch, lambda cam=cam: step(state, cam, target, cfg, opt))
+        losses.append(m["loss"])
+        traced.append({k: launches[k] for k in ("preprocess", "preprocess_bwd")})
+    got = {**state_tensors(state), "loss": torch.stack(losses)}
+    route.update(replays_traced=traced[1:], stats=dict(step.stats),
+                 not_repeatable=[k for k, v in repeatable.items() if not v])
+    for k, v in got.items():
+        if repeatable[k] and not torch.equal(v, eager[k]):
+            problems.append(f"compiled train step: {k} differs from the eager steps'")
+    step.clear()
+    if route["eager_step"] != dict(forward=1, backward=1) or any(
+            t != dict(preprocess=1, preprocess_bwd=1) for t in traced[1:]):
+        problems.append(f"route: {route}")
+
+    # The sharded step's exchange table on one rank: the Function's views
+    # concatenated, its gradient against the plain route's (a camera tensor
+    # requiring grad).
+    cot = torch.randn((params.num_gaussians, 16), generator=torch.Generator(device=dev)
+                      .manual_seed(3), device=dev)
+    sharded = {}
+    for route_name, cam in (("kernels", cams[0]), ("plain", dataclasses.replace(
+            cams[0], view=cams[0].view.detach().requires_grad_(True)))):
+        leaves = {k: getattr(params, k).detach().requires_grad_(True) for k in GRAD_FIELDS}
+        pre.BACKWARD_LAUNCHES = 0
+        tbl = pack_exchange_table(pre.preprocess(dataclasses.replace(params, **leaves), cam,
+                                                 cfg))
+        sharded[route_name] = dict(zip(GRAD_FIELDS, torch.autograd.grad(
+            tbl, list(leaves.values()), cot)))
+        sharded[f"{route_name}_backward_launches"] = pre.BACKWARD_LAUNCHES
+    route["sharded_table"] = grad_gaps(torch, sharded["kernels"], sharded["plain"])
+    route["sharded_backward_launches"] = [sharded["kernels_backward_launches"],
+                                          sharded["plain_backward_launches"]]
+    bad = {k: v["gap"] for k, v in route["sharded_table"].items()
+           if not v["gap"] <= PREPROCESS_BWD_GAP}
+    if bad or route["sharded_backward_launches"] != [1, 0]:
+        problems.append(f"sharded exchange table: {bad}, launches "
+                        f"{route['sharded_backward_launches']}")
+    res["route"] = route
+    log(phase="preprocess_bwd", seconds=time.perf_counter() - t0, problems=problems[:40], **res)
+    if problems:
+        fail(f"preprocess_bwd: {len(problems)} problems, first {problems[:5]}")
     return res
 
 
@@ -1321,10 +1546,13 @@ def phase_garden_serving(torch, dev, params, cams, cfg):
 
 
 def phase_garden_training(torch, dev, params, cams, cfg):
-    """Three train_steps at the garden shapes through all four kernels."""
+    """Three train_steps at the garden shapes through all six kernels: each
+    call launches emission, both blends and segment_reduce, and the
+    preprocess forward and backward kernels exactly once each."""
     from tpusplat_torch import random_scene
     from tpusplat_torch.config import regrow
     from tpusplat_torch.ops import emission, rasterize, segment_reduce
+    from tpusplat_torch.ops import preprocess as pre
     from tpusplat_torch.render import compile_render, render_auto
     from tpusplat_torch.train import step as tstep
 
@@ -1342,9 +1570,12 @@ def phase_garden_training(torch, dev, params, cams, cfg):
     torch.cuda.synchronize()
 
     counters = (lambda: (emission.LAUNCHES, rasterize.FORWARD_LAUNCHES,
-                         rasterize.BACKWARD_LAUNCHES, segment_reduce.LAUNCHES))
+                         rasterize.BACKWARD_LAUNCHES, segment_reduce.LAUNCHES,
+                         pre.LAUNCHES, pre.BACKWARD_LAUNCHES))
     emission.LAUNCHES = rasterize.FORWARD_LAUNCHES = 0
     rasterize.BACKWARD_LAUNCHES = segment_reduce.LAUNCHES = 0
+    pre.LAUNCHES = pre.BACKWARD_LAUNCHES = 0
+    calls = 0
     state, steps_ms, losses, retries, device_allocs = state0, [], [], 0, []
     torch.cuda.reset_peak_memory_stats()
     for i, cam in enumerate(cams):
@@ -1356,8 +1587,13 @@ def phase_garden_training(torch, dev, params, cams, cfg):
             new, metrics = tstep.train_step(state, cam, targets[i], cfg, opt)
             e1.record()
             e1.synchronize()
-            if not all(a > b for a, b in zip(counters(), before)):
+            calls += 1
+            moved = [a - b for a, b in zip(counters(), before)]
+            if not all(m > 0 for m in moved):
                 fail(f"garden step {i}: a kernel was not launched ({counters()})")
+            if moved[4:] != [1, 1]:
+                fail(f"garden step {i}: preprocess launches {moved[4:]}, expected one "
+                     "forward and one backward")
             cfg2, changes = regrow(cfg, metrics, n)
             if changes is None:
                 break
@@ -1372,8 +1608,10 @@ def phase_garden_training(torch, dev, params, cams, cfg):
         # cudaMalloc calls the caching allocator made during the step
         device_allocs.append(torch.cuda.memory_stats().get("num_device_alloc", 0) - allocs)
         losses.append(float(metrics["loss"]))
-    launches = dict(zip(("emission", "forward_blend", "backward_blend", "segment_reduce"),
-                        counters()))
+    launches = dict(zip(("emission", "forward_blend", "backward_blend", "segment_reduce",
+                         "preprocess", "preprocess_bwd"), counters()))
+    if (launches["preprocess"], launches["preprocess_bwd"]) != (calls, calls):
+        fail(f"garden training: preprocess launches {launches}, expected {calls} each")
     if not all(math.isfinite(v) for v in losses):
         fail(f"garden training: loss not finite {losses}")
     if int(state.step) != len(cams):
@@ -1415,7 +1653,8 @@ KERNEL_SYMBOLS = dict(emission="emit_kernel", forward_blend="forward_kernel",
                       backward_blend="backward_kernel", segment_reduce="segment_reduce_kernel",
                       segment_reduce_targets="targets_kernel",
                       segment_reduce_multirange="multirange_kernel",
-                      preprocess="preprocess_kernel")
+                      preprocess="preprocess_kernel",
+                      preprocess_bwd="preprocess_backward_kernel")
 PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+)(?:<[^(]*>)?\(")
 
 
@@ -1529,6 +1768,7 @@ def phase_compiled(torch, dev, params, cams, cfg):
     profiler window over three compiled train steps."""
     from tpusplat_torch.bench import profile_detail
     from tpusplat_torch.ops import emission, rasterize, segment_reduce
+    from tpusplat_torch.ops import preprocess as pre
     from tpusplat_torch.render import compile_render, render_auto, render_stages
     from tpusplat_torch.train import step as tstep
     from tpusplat_torch.train.checkpoint import state_tensors
@@ -1536,11 +1776,13 @@ def phase_compiled(torch, dev, params, cams, cfg):
     def counters():
         return dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES,
                     backward_blend=rasterize.BACKWARD_LAUNCHES,
-                    segment_reduce=segment_reduce.LAUNCHES)
+                    segment_reduce=segment_reduce.LAUNCHES, preprocess=pre.LAUNCHES,
+                    preprocess_bwd=pre.BACKWARD_LAUNCHES)
 
     def reset():
         emission.LAUNCHES = rasterize.FORWARD_LAUNCHES = 0
         rasterize.BACKWARD_LAUNCHES = segment_reduce.LAUNCHES = 0
+        pre.LAUNCHES = pre.BACKWARD_LAUNCHES = 0
 
     n, w, h = params.num_gaussians, cams[0].width, cams[0].height
     res = dict(n=n, width=w, height=h)
@@ -1637,7 +1879,8 @@ def phase_compiled(torch, dev, params, cams, cfg):
     for i, cam in enumerate(cams):
         (state, m), traced, moved = traced_call(
             "compiled train_step", i, lambda cam=cam: step(state, cam, target, cfg, opt),
-            ("emission", "forward_blend", "backward_blend", "segment_reduce"))
+            ("emission", "forward_blend", "backward_blend", "segment_reduce", "preprocess",
+             "preprocess_bwd"))
         losses.append(m["loss"])
         per_step.append(traced)
         wrapper_calls.append(moved)
@@ -3274,6 +3517,7 @@ def run(torch, dev, kind: str, smi: str) -> int:
         phase_parity(torch, dev)
     phase_grad_6k(torch, dev)
     phase_preprocess(torch, dev)
+    phase_preprocess_bwd(torch, dev)
     phase_trace(torch, dev)
 
     params, cams, cfg = garden_inputs(torch, dev)

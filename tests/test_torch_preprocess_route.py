@@ -1,9 +1,12 @@
 """The route of tpusplat_torch.ops.preprocess.preprocess and the guard of
-its kernel's wrapper. A call that autograd records takes the plain
-version with its graph; every other call off the CPU takes the kernel
-(its entry replaced here by a stub: there is no card, so meta tensors
-stand in for CUDA ones); a CPU call takes the plain version. The wrapper
-refuses what the kernel does not take with ValueError."""
+its kernel's wrapper. A call off the CPU that autograd records for the
+parameters takes the kernels' autograd Function, one where a camera tensor
+requires grad the plain version with its graph, every other call off the
+CPU the forward kernel alone (the kernels' C calls replaced here by
+stubs, and the forward's wrapper by one that records its calls: there is
+no card, so meta tensors stand in for CUDA ones); a CPU call takes the
+plain version. The wrapper refuses
+what the kernel does not take with ValueError."""
 
 import pathlib
 import re
@@ -37,13 +40,22 @@ def _inputs(device="cpu", **replace):
 
 @pytest.fixture
 def kernel_calls(monkeypatch):
-    calls = []
+    calls, preprocess_cuda = [], pre.preprocess_cuda
 
-    def stub(params, camera, cfg):
+    def recorded(params, camera, cfg):
         calls.append((params, camera, cfg))
-        return "kernel"
+        return preprocess_cuda(params, camera, cfg)
 
-    monkeypatch.setattr(pre, "preprocess_cuda", stub)
+    def launch(params, camera, cfg, out):
+        pre.LAUNCHES += 1
+
+    def launch_backward(params, camera, cfg, d_table, grads):
+        pre.BACKWARD_LAUNCHES += 1
+
+    monkeypatch.setattr(pre, "preprocess_cuda", recorded)
+    monkeypatch.setattr(pre, "check_inputs", lambda params, camera: None)
+    monkeypatch.setattr(pre, "launch", launch)
+    monkeypatch.setattr(pre, "launch_backward", launch_backward)
     return calls
 
 
@@ -52,9 +64,9 @@ ROUTES = [
     ("meta", False, None, "kernel"),
     ("meta", True, None, "kernel"),
     ("meta", False, "means", "kernel"),  # under no_grad nothing is recorded
-    ("meta", True, "means", "plain"),
-    ("meta", True, "sh", "plain"),
-    ("meta", True, "view", "plain"),  # a camera tensor counts too
+    ("meta", True, "means", "function"),
+    ("meta", True, "sh", "function"),
+    ("meta", True, "view", "plain"),  # the kernels write no camera gradient
     ("cpu", False, None, "plain"),
     ("cpu", True, None, "plain"),
     ("cpu", True, "log_scales", "plain"),
@@ -67,15 +79,26 @@ def test_route_follows_what_autograd_records(kernel_calls, device, grad, leaf, r
     if leaf is not None:
         obj = params if leaf in pre.PARAM_SHAPES else cam
         setattr(obj, leaf, getattr(obj, leaf).detach().requires_grad_(True))
-    launches = pre.LAUNCHES
+    launches, backward = pre.LAUNCHES, pre.BACKWARD_LAUNCHES
     with torch.set_grad_enabled(grad):
         pg = pre.preprocess(params, cam, CFG)
-    assert pre.LAUNCHES == launches
-    if route == "kernel":
-        assert pg == "kernel" and len(kernel_calls) == 1
+    assert isinstance(pg, pre.ProcessedGaussians)
+    if route in ("kernel", "function"):  # one forward launch, the table as it lies
+        assert pre.LAUNCHES == launches + 1 and pre.BACKWARD_LAUNCHES == backward
+        assert len(kernel_calls) == 1
         assert kernel_calls[0][0] is params and kernel_calls[0][1] is cam
+        assert pre.attribute_table(pg) is pg.table
+    if route == "kernel":
+        assert pg.table.grad_fn is None
         return
-    assert not kernel_calls and isinstance(pg, pre.ProcessedGaussians)
+    if route == "function":  # and one backward launch
+        assert pg.table.grad_fn.name() == "_PreprocessBackward"
+        (pg.color.sum() + pg.conic.sum() + pg.uv.sum() + pg.opacity.sum()).backward()
+        assert pre.BACKWARD_LAUNCHES == backward + 1
+        t = getattr(params, leaf)
+        assert t.grad is not None and t.grad.shape == t.shape
+        return
+    assert not kernel_calls and pre.LAUNCHES == launches
     assert pg.ntiles.dtype == torch.int32 and pg.aabb.shape == (N, 4)
     recorded = grad and leaf is not None
     graphs = [getattr(pg, f).grad_fn for f in ("uv", "conic", "opacity", "color", "radius")]

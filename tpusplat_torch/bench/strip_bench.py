@@ -62,12 +62,14 @@ def strip_fwd_bwd(params, cam, cfg, row0, nrows, cap, gcap):
 
 def preprocess_fwd_bwd(params, cam, cfg):
     """Preprocess and its backward (the part of a strip's step that a
-    sharded card pays on its N/n shard only)."""
+    sharded card pays on its N/n shard only). Depth is left out of the loss:
+    it reaches the blend only detached (binning, the exchange table), and
+    the kernels' route gives it no gradient."""
     from tpusplat_torch.ops.preprocess import preprocess
 
     p, leaves = _leaves(params)
     pg = preprocess(p, cam, cfg)
-    loss = pg.uv.sum() + pg.conic.sum() + pg.opacity.sum() + pg.color.sum() + pg.depth.sum()
+    loss = pg.uv.sum() + pg.conic.sum() + pg.opacity.sum() + pg.color.sum()
     return torch.autograd.grad(loss, leaves)
 
 

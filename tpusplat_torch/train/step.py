@@ -204,7 +204,8 @@ def train_step(state: TrainState, camera: Camera, target: torch.Tensor, cfg: Ren
     """One optimization step on a single camera. Returns (state, metrics).
 
     Forward and backward run on the parameters' device: on the card through
-    the emission, forward-blend, backward-blend and segment-reduce kernels.
+    the preprocess forward and backward, emission, forward-blend,
+    backward-blend and segment-reduce kernels.
     The update is a no-op while any overflow counter of the render is
     nonzero; the counters come back in ``metrics`` as device tensors."""
     loss, aux, leaves = step_forward(state, camera, target, cfg, ssim_weight)
