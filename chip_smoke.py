@@ -71,18 +71,17 @@ Phases, one output line each; any failure exits non-zero:
   5. garden serving: 1.4M Gaussians at 1920x1080, SH3, tight radius,
      capacity from a preprocess probe x1.05; ``render_auto`` replaying
      the phase's compiled render (captured at the warm-up frame) on a
-     3-camera orbit, timed, with the launch counters reset just before and
+     3-camera orbit, with the launch counters reset just before and
      read just after (a replay runs no wrapper); ``render_profiled`` once
      before the capture and twice after it; the orbit again in a profiler
      window a frame, emission, forward and preprocess counted from the
      trace at least once a frame; ``render_profiled`` once more; the
      cudaMalloc calls each ``render_profiled`` made;
   6. garden training: the eager ``train_step`` at the same shapes against
-     renders of a second random scene, one warm-up step and three timed
-     steps with the regrow retry, counters reset just before and read just
+     renders of a second random scene, one warm-up step and three steps
+     with the regrow retry, counters reset just before and read just
      after (each call moves every kernel's, the preprocess forward's and
-     backward's by exactly one); then one step split into forward,
-     backward and Adam;
+     backward's by exactly one), and the cudaMalloc calls of each step;
  6b. compiled: each compiled entry point at the garden shapes against its
      eager function on the same inputs (``tpusplat_torch.compiled``): three
      ``render_auto`` frames against ``render_stages`` and a forced regrow
@@ -95,11 +94,12 @@ Phases, one output line each; any failure exits non-zero:
      a call; each compiled call in a profiler window, each kernel counted
      from the trace at least once a call (a train step's the preprocess
      forward and backward kernels too), the wrappers' counters (reset
-     just before) still at a replay; eager and compiled times in
-     turns (host-differenced and CUDA events), the capture seconds, and a
-     ``profile_window`` over three compiled train steps;
+     just before) still at a replay; the capture seconds, and a
+     ``profile_window`` over three compiled train steps. The frames and
+     steps are not timed here: the benchmark's cells measure them;
   7. kernels at the garden shapes: each against its plain version, timed
-     with CUDA events beside its bound, the plain version's time and, where
+     with CUDA events (``_timing.time_ms``: after two warm calls, as every
+     device time here) beside its bound, the plain version's time and, where
      one PyTorch call computes the same function, that call's time; the
      emission kernel's own time (its C call on inputs made beforehand)
      beside its wrapper's; the backward blend and the segment reduce
@@ -149,15 +149,16 @@ Phases, one output line each; any failure exits non-zero:
      decision only within 4 ulp of its limit), its ms; then the compiled
      round (``compile_densify``) with two keys as key tensors, a capture
      and a replay, each bit-equal to the eager round from the same key in
-     every state tensor, eager and compiled ms in turns, a profiler window
-     over one of each, the round's aten kernels and bytes counted on meta
-     tensors, the allocator before and after; the seconds of each
-     part (the checkpoint's save and load among them);
+     every state tensor, a profiler window over one of each, the round's
+     aten kernels and bytes counted on meta tensors, the allocator before
+     and after; the seconds of each part (the checkpoint's save and load
+     among them);
  11. sharded_emulated: one strip of the tile-sharded path at the garden
      shapes (tile = 4, 17 tile rows a strip, strip_gauss_mult 2.0: strip
      compaction active, or the run fails) through
      ``exchange_render_emulated``, forward and backward, the launch counters
-     reset just before and read just after; the segment reduce's
+     reset just before and read just after, then timed (CUDA events, the
+     mean of three calls after two warm ones); the segment reduce's
      streamed-target and multi-range kernels on that strip's ids, with its
      gradient rows and with seeded random rows: bit-equal to the runs route
      (the dense kernel over runs searched by ``torch.searchsorted``,
@@ -195,10 +196,13 @@ Phases, one output line each; any failure exits non-zero:
      2x2): the sharded render against the one-process render, the overlap
      step's loss against the monolithic one's, the compact exchange
      against the dense one; every rank launches every kernel;
- 15. profile_detail: the garden stage table and a ``torch.profiler``
-     window over three train steps (window ms, device-busy ms, idle share,
-     launches a step, the ten kernels with the most device time), and the
-     same steps unprofiled;
+ 15. profile_detail: the garden stage table from the program's stamps
+     (the median over five replays of a compiled frame and of a compiled
+     train step of each stage's ms on the device clock, the gap between
+     replays and the whole replay) and a ``torch.profiler`` window over
+     three replays of the compiled train step (window ms, device-busy ms,
+     idle share, launches a step, the ten kernels with the most device
+     time), and the same replays unprofiled;
  16. gpu_gate: the gate's five checks (CUDA against the plain path at
      100k/800^2 and its production block, the strip path, the golden
      oracle at 6k/128^2, the compact exchange); fails unless all pass;
@@ -220,9 +224,12 @@ Phases, one output line each; any failure exits non-zero:
      harness times the compiled step; beside it (``compiled_headline``) the
      compiled step against the eager one at each configuration: outputs bit
      for bit where two eager calls are, one replayed step in a profiler
-     window (every kernel counted from the trace; no wrapper ran), times in
-     turns, the capture seconds, and at garden a profiler window over three
-     compiled steps.
+     window (every kernel counted from the trace; no wrapper ran), the
+     capture seconds, and at garden a profiler window over three compiled
+     steps.
+Every device time here is ``tpusplat_torch.bench._timing``'s, as every
+profiler window is; end-to-end frame and step times are the benchmark's
+cells' (``splatbench``), which this run does not repeat.
 The line before the last is the ``{"kernels": [...]}`` summary (``launches``:
 the wrappers' counters over the eager garden training steps; ``*_traced``:
 device launches counted by name in the trace of graph replays); the last
@@ -244,9 +251,10 @@ import json
 import math
 import re
 import statistics
-import subprocess
 import sys
 import time
+
+from tpusplat_torch.bench._timing import nvidia_smi, profile_window, profiled, time_ms
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W power limit).
 PEAK_FP32_FLOPS = 67e12
@@ -277,6 +285,7 @@ REHEARSAL = ["--synthetic", "--steps", "30", "--width", "128", "--height", "128"
 # The tile-sharded phases: tile shards of the emulated garden strip (17 tile
 # rows of 68) and its stream multiplier; the two-process mesh.
 SHARDED_TILE, SHARDED_STRIP, SHARDED_GAUSS_MULT = 4, 1, 2.0
+SHARDED_PATH_REPS = 3  # timed calls of the emulated strip's forward and backward
 TWO_PROCESS_MESH = (1, 2)
 # ``--nccl``: the meshes over a card per rank.
 NCCL_MESHES, NCCL_CARDS = [(1, 4), (2, 2)], 4
@@ -284,29 +293,6 @@ NCCL_MESHES, NCCL_CARDS = [(1, 4), (2, 2)], 4
 
 def log(**kw):
     print(json.dumps(kw), flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
-    """Mean milliseconds of ``fn`` over ``reps`` back-to-back calls, by CUDA
-    events on the current stream, after ``warm`` calls."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def fail(msg: str):
@@ -1011,17 +997,17 @@ def time_preprocess(torch, pre, params, cam, cfg) -> dict:
     """The kernel's ms (its C call alone into a buffer made beforehand, and
     its wrapper's) beside its byte bound and the plain version's, by CUDA
     events at the scene's shapes."""
-    n = params.num_gaussians
-    out = torch.empty(pre.OUT_WORDS * n, device=params.means.device)
+    n, dev = params.num_gaussians, params.means.device
+    out = torch.empty(pre.OUT_WORDS * n, device=dev)
     k = (min(cfg.sh_degree, 3) + 1) ** 2
     nbytes = n * (12 + 12 + 16 + 4 + 1 + 12 * k + 4 * pre.OUT_WORDS)
     res = dict(bytes=nbytes, bound_ms=bound(nbytes, 0)[0], kernel_ms=[], wrapper_ms=[])
     for _ in range(2):
-        res["kernel_ms"].append(cuda_ms(torch, lambda: pre.launch(params, cam, cfg, out),
-                                        reps=50, warm=3))
-        res["wrapper_ms"].append(cuda_ms(torch, lambda: pre.preprocess_cuda(params, cam, cfg),
-                                         reps=50))
-    res["plain_ms"] = cuda_ms(torch, lambda: pre.preprocess_plain(params, cam, cfg), reps=5)
+        res["kernel_ms"].append(time_ms(lambda: pre.launch(params, cam, cfg, out), dev, 50,
+                                        3)[0])
+        res["wrapper_ms"].append(time_ms(lambda: pre.preprocess_cuda(params, cam, cfg), dev,
+                                         50)[0])
+    res["plain_ms"] = time_ms(lambda: pre.preprocess_plain(params, cam, cfg), dev, 5)[0]
     res["share_of_bound"] = res["bound_ms"] / min(res["kernel_ms"])
     return res
 
@@ -1138,13 +1124,13 @@ def phase_preprocess(torch, dev):
     route["frames_bit_equal"] = torch.equal(img_k, img_p.detach())
     render = compile_render()
     render_auto(params, cam, cfg, compiled=render)  # the capture
-    _, ops = traced_device_ops(torch, lambda: render_auto(params, cam, cfg, compiled=render))
+    ops = profiled(lambda: render_auto(params, cam, cfg, compiled=render), dev).counts()
     route["replayed_frame_traced"] = port_launches(ops)["preprocess"]
     route["replayed_frame_cat_copies"] = sum(v for k, v in ops.items() if "CatArray" in k)
     del render
     step = tstep.compile_train_step()
     state, _ = step(state, cam, target, cfg, opt)  # the capture
-    (state, _), traced = traced_launches(torch, lambda: step(state, cam, target, cfg, opt))
+    (state, _), traced = traced_launches(lambda: step(state, cam, target, cfg, opt))
     route["replayed_train_step_traced"] = traced["preprocess"]
     route["replayed_train_step_other_kernels"] = {k: v for k, v in traced.items()
                                                   if k != "preprocess"}
@@ -1220,25 +1206,24 @@ def time_preprocess_bwd(torch, pre, params, cam, cfg) -> dict:
     beforehand, and its wrapper's) beside its byte bound, the plain
     version's and autograd's backward of the plain forward (the route the
     train step took before the kernel), by CUDA events."""
-    n = params.num_gaussians
-    d_table = table_cotangent(torch, n, params.means.device, 1)
+    n, dev = params.num_gaussians, params.means.device
+    d_table = table_cotangent(torch, n, dev, 1)
     grads = {k: torch.empty_like(getattr(params, k)) for k in GRAD_FIELDS}
     k = (min(cfg.sh_degree, 3) + 1) ** 2
     nbytes = n * (PREPROCESS_BWD_BYTES + 12 * k + 192)
     res = dict(bytes=nbytes, bound_ms=bound(nbytes, 0)[0], kernel_ms=[], wrapper_ms=[])
     for _ in range(2):
-        res["kernel_ms"].append(cuda_ms(
-            torch, lambda: pre.launch_backward(params, cam, cfg, d_table, grads), reps=50,
-            warm=3))
-        res["wrapper_ms"].append(cuda_ms(
-            torch, lambda: pre.preprocess_backward_cuda(params, cam, cfg, d_table), reps=50))
-    res["plain_ms"] = cuda_ms(
-        torch, lambda: pre.preprocess_backward_plain(params, cam, cfg, d_table), reps=5)
+        res["kernel_ms"].append(time_ms(
+            lambda: pre.launch_backward(params, cam, cfg, d_table, grads), dev, 50, 3)[0])
+        res["wrapper_ms"].append(time_ms(
+            lambda: pre.preprocess_backward_cuda(params, cam, cfg, d_table), dev, 50)[0])
+    res["plain_ms"] = time_ms(
+        lambda: pre.preprocess_backward_plain(params, cam, cfg, d_table), dev, 5)[0]
     leaves = {f: getattr(params, f).detach().requires_grad_(True) for f in GRAD_FIELDS}
     table = pre.attribute_table(pre.preprocess_plain(dataclasses.replace(params, **leaves),
                                                      cam, cfg))
-    res["autograd_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
-        table, list(leaves.values()), d_table, retain_graph=True), reps=5)
+    res["autograd_ms"] = time_ms(lambda: torch.autograd.grad(
+        table, list(leaves.values()), d_table, retain_graph=True), dev, 5)[0]
     res["share_of_bound"] = res["bound_ms"] / min(res["kernel_ms"])
     return res
 
@@ -1317,7 +1302,7 @@ def phase_preprocess_bwd(torch, dev):
     state, losses, traced = tstep.create_train_state(params), [], []
     for cam in cams:
         (state, m), launches = traced_launches(
-            torch, lambda cam=cam: step(state, cam, target, cfg, opt))
+            lambda cam=cam: step(state, cam, target, cfg, opt))
         losses.append(m["loss"])
         traced.append({k: launches[k] for k in ("preprocess", "preprocess_bwd")})
     got = {**state_tensors(state), "loss": torch.stack(losses)}
@@ -1481,7 +1466,7 @@ def phase_trace(torch, dev):
 def phase_garden_serving(torch, dev, params, cams, cfg):
     """render_auto on the orbit, replaying the phase's own compiled render:
     an eager ``render_profiled`` frame, then the warm-up frame captures the
-    render, then three timed frames with the wrappers' counters reset just
+    render, then three frames with the wrappers' counters reset just
     before and read just after (a replay runs no wrapper: they stay at 0);
     ``render_profiled`` twice; then the orbit again, a profiler window a
     frame, each kernel's launches counted from the trace (emission and
@@ -1494,13 +1479,13 @@ def phase_garden_serving(torch, dev, params, cams, cfg):
 
     w, h = cams[0].width, cams[0].height
     alloc0 = allocator(torch)
-    profiled = []
+    frames = []
 
     def profiled_frame(when):
         allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
         _, _, stage_ms = render_profiled(params, cams[0], cfg)
         allocs = torch.cuda.memory_stats().get("num_device_alloc", 0) - allocs
-        profiled.append(dict(when=when, stage_ms=stage_ms, device_allocs=allocs))
+        frames.append(dict(when=when, stage_ms=stage_ms, device_allocs=allocs))
 
     profiled_frame("before the capture")
     render = compile_render()
@@ -1508,14 +1493,9 @@ def phase_garden_serving(torch, dev, params, cams, cfg):
     torch.cuda.synchronize()
     emission.LAUNCHES = 0
     rasterize.FORWARD_LAUNCHES = 0
-    frames_ms, instances = [], []
+    instances = []
     for i, cam in enumerate(cams):
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        e0.record()
         img, aux, cfg = render_auto(params, cam, cfg, compiled=render)
-        e1.record()
-        e1.synchronize()
-        frames_ms.append(e0.elapsed_time(e1))
         instances.append(int(aux["num_instances"]))
         if int(aux["capacity_overflow"]) != 0:
             fail(f"garden frame {i}: capacity overflow")
@@ -1529,8 +1509,8 @@ def phase_garden_serving(torch, dev, params, cams, cfg):
         profiled_frame(when)  # the graph still held, as a viewer holds it between frames
     launches = dict(emission=0, forward_blend=0, preprocess=0)
     for i, cam in enumerate(cams):
-        _, traced = traced_launches(torch, lambda cam=cam: render_auto(params, cam, cfg,
-                                                                       compiled=render))
+        _, traced = traced_launches(lambda cam=cam: render_auto(params, cam, cfg,
+                                                                compiled=render))
         if min(traced[k] for k in launches) < 1:
             fail(f"garden frame {i}: a kernel was not launched ({traced})")
         for k in launches:
@@ -1538,8 +1518,8 @@ def phase_garden_serving(torch, dev, params, cams, cfg):
     profiled_frame("after the profiler windows")
     del render
     log(phase="garden_serving", n=params.num_gaussians, width=w, height=h,
-        capacity=cfg.instance_capacity(params.num_gaussians), frames_ms=frames_ms,
-        num_instances=instances, stage_ms=profiled[1]["stage_ms"], profiled=profiled,
+        capacity=cfg.instance_capacity(params.num_gaussians), num_instances=instances,
+        stage_ms=frames[1]["stage_ms"], profiled=frames,
         launches_traced=launches, wrapper_calls=wrapper_calls,
         allocator=[alloc0, allocator(torch)])
     return cfg, launches
@@ -1576,17 +1556,13 @@ def phase_garden_training(torch, dev, params, cams, cfg):
     rasterize.BACKWARD_LAUNCHES = segment_reduce.LAUNCHES = 0
     pre.LAUNCHES = pre.BACKWARD_LAUNCHES = 0
     calls = 0
-    state, steps_ms, losses, retries, device_allocs = state0, [], [], 0, []
+    state, losses, retries, device_allocs = state0, [], 0, []
     torch.cuda.reset_peak_memory_stats()
     for i, cam in enumerate(cams):
         for _ in range(5):
             before = counters()
             allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            e0.record()
             new, metrics = tstep.train_step(state, cam, targets[i], cfg, opt)
-            e1.record()
-            e1.synchronize()
             calls += 1
             moved = [a - b for a, b in zip(counters(), before)]
             if not all(m > 0 for m in moved):
@@ -1604,7 +1580,6 @@ def phase_garden_training(torch, dev, params, cams, cfg):
         else:
             fail(f"garden step {i}: still overflowing after 5 tries")
         state = new
-        steps_ms.append(e0.elapsed_time(e1))
         # cudaMalloc calls the caching allocator made during the step
         device_allocs.append(torch.cuda.memory_stats().get("num_device_alloc", 0) - allocs)
         losses.append(float(metrics["loss"]))
@@ -1619,31 +1594,16 @@ def phase_garden_training(torch, dev, params, cams, cfg):
     if torch.equal(state.params.means, params.means) or \
             torch.equal(state.params.opacities, params.opacities):
         fail("garden training: the parameters did not change")
-
-    # One more step, split into forward (render + loss), backward and Adam.
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    marks[0].record()
-    loss, aux, leaves = tstep.step_forward(state, cams[0], targets[0], cfg)
-    marks[1].record()
-    grads = tstep.step_backward(loss, leaves)
-    marks[2].record()
-    tstep.apply_gradients(state, loss, aux, grads, opt)
-    marks[3].record()
-    marks[3].synchronize()
-    split_ms = dict(zip(("forward", "backward", "adam"),
-                        (a.elapsed_time(b) for a, b in zip(marks, marks[1:]))))
-    mean_ms = sum(steps_ms) / len(steps_ms)
     log(phase="garden_training", n=n, width=w, height=h, sh_degree=3,
-        capacity=cfg.instance_capacity(n), steps_ms=steps_ms, losses=losses, retries=retries,
-        step=int(state.step), launches=launches, split_ms=split_ms,
-        device_allocs=device_allocs, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-        mpix_per_s=w * h / (mean_ms * 1e-3) / 1e6)
+        capacity=cfg.instance_capacity(n), losses=losses, retries=retries,
+        step=int(state.step), launches=launches, device_allocs=device_allocs,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     return cfg, launches
 
 
-# The compiled phase: timed calls a reading, and the forward's bounds for
-# an output that two eager calls do not give bit for bit.
-COMPILED_ITERS, FORWARD_ATOL, FORWARD_RTOL = 10, 3e-5, 1e-4
+# The compiled phase: the forward's bounds for an output that two eager
+# calls do not give bit for bit.
+FORWARD_ATOL, FORWARD_RTOL = 3e-5, 1e-4
 
 
 # Each port kernel's CUDA function, as a profiler trace names it (the
@@ -1658,19 +1618,19 @@ KERNEL_SYMBOLS = dict(emission="emit_kernel", forward_blend="forward_kernel",
 PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+)(?:<[^(]*>)?\(")
 
 
-def traced_launches(torch, fn):
+def traced_launches(fn):
     """``fn()`` in a ``torch.profiler`` window: its result and, for each
     port kernel, the launches the device ran in the window, counted by name
     in the trace. A graph replay runs no wrapper, so the wrappers' counters
     do not see it; the trace does. Fails if the window recorded no device
     activity at all."""
-    out, names = traced_device_ops(torch, fn)
-    if not names:
+    window = profiled(fn, "cuda")
+    if not window.ops:
         fail("traced_launches: the profiler recorded no device activity")
-    return out, port_launches(names)
+    return window.out, port_launches(window.counts())
 
 
-def port_launches(names: collections.Counter) -> dict:
+def port_launches(names: dict) -> dict:
     """Each port kernel's launches among device operations counted by name."""
     seen = collections.Counter()
     for name, count in names.items():
@@ -1678,20 +1638,6 @@ def port_launches(names: collections.Counter) -> dict:
         if m:
             seen[m.group(1)] += count
     return {k: seen[sym] for k, sym in KERNEL_SYMBOLS.items()}
-
-
-def traced_device_ops(torch, fn):
-    """``fn()`` in a ``torch.profiler`` window: its result and the count of
-    each device operation (kernel or copy) by name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    return out, collections.Counter(e.name for e in prof.events()
-                                    if e.device_type == DeviceType.CUDA)
 
 
 def allocator(torch) -> dict:
@@ -1704,35 +1650,6 @@ def allocator(torch) -> dict:
                 device_allocs=st.get("num_device_alloc", 0),
                 device_frees=st.get("num_device_free", 0),
                 alloc_retries=st.get("num_alloc_retries", 0))
-
-
-def host_ms(torch, fn, iters: int) -> float:
-    """``bench.py``'s differenced host time of one call, each run fenced by
-    a synchronise: (t_big - t_small) / iters over runs of iters +
-    max(1, iters // 4) and max(1, iters // 4) calls."""
-    def run(calls):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    pad = max(1, iters // 4)
-    run(1)  # a warm call: no first-call allocation in the timed runs
-    small = run(pad)
-    return (run(iters + pad) - small) / iters * 1e3
-
-
-def timed_turns(torch, fns: dict, iters: int = COMPILED_ITERS) -> dict:
-    """Each call of ``fns`` (name -> call) timed in turns, in order then in
-    reverse (eager, compiled, compiled, eager): two readings each of the
-    host-differenced ms and the CUDA-event ms."""
-    out = {k: dict(host_ms=[], event_ms=[]) for k in fns}
-    for name in [*fns, *reversed(list(fns))]:
-        out[name]["host_ms"].append(host_ms(torch, fns[name], iters))
-        out[name]["event_ms"].append(cuda_ms(torch, fns[name], iters))
-    return out
 
 
 def hold_to_eager(what, got: dict, want: dict, repeatable: dict, atol, rtol=0.0):
@@ -1764,9 +1681,8 @@ def phase_compiled(torch, dev, params, cams, cfg):
     trace, at least once a call; the wrappers' counters, reset just before,
     move at the capture (its warm-up calls and the captured call) and not at
     a replay, which runs no wrapper. Captures and replays prove the graphs
-    ran. Eager and compiled times in turns, the capture seconds, and a
-    profiler window over three compiled train steps."""
-    from tpusplat_torch.bench import profile_detail
+    ran. The capture seconds, and a profiler window over three compiled
+    train steps."""
     from tpusplat_torch.ops import emission, rasterize, segment_reduce
     from tpusplat_torch.ops import preprocess as pre
     from tpusplat_torch.render import compile_render, render_auto, render_stages
@@ -1796,7 +1712,7 @@ def phase_compiled(torch, dev, params, cams, cfg):
         ``kinds`` did not run, or if a replay (every call after the first)
         moved a wrapper's counter."""
         was = counters()
-        out, traced = traced_launches(torch, fn)
+        out, traced = traced_launches(fn)
         moved = {k: v - was[k] for k, v in counters().items()}
         if min(traced[k] for k in kinds) < 1:
             fail(f"{what} {i}: a kernel was not launched ({traced})")
@@ -1832,10 +1748,7 @@ def phase_compiled(torch, dev, params, cams, cfg):
             fail(f"compiled render_auto: {stats}, expected one capture and a replay a frame")
         res["render_auto"] = dict(
             launches_traced=per_frame, wrapper_calls=wrapper_calls,
-            stats=stats, repeatable=repeatable, loose=loose,
-            times=timed_turns(torch, dict(
-                eager=lambda: render_stages(params, cams[0], cfg),
-                compiled=lambda: render(params, cams[0], cfg))))
+            stats=stats, repeatable=repeatable, loose=loose)
         del eager
 
         before = dict(render.stats)
@@ -1901,22 +1814,18 @@ def phase_compiled(torch, dev, params, cams, cfg):
             loose[k] = check_close(f"compiled train_step {k}", v.float(), want.float(), tol,
                                    SHARDED_LOSS_RTOL if k == "loss" else 0.0)
     del ea
-    state0 = tstep.create_train_state(params)
     held = [state]
 
     def compiled_step():
         held[0], m = step(held[0], cams[0], target, cfg, opt)
         return m
 
-    times = timed_turns(torch, dict(
-        eager=lambda: tstep.train_step(state0, cams[0], target, cfg, opt),
-        compiled=compiled_step))
     t0 = time.perf_counter()
-    win = profile_detail.profile_window(compiled_step, dev, steps=3)
+    win = profile_window(compiled_step, dev, steps=3)
     res = dict(n=n, width=w, height=h, losses=[float(v) for v in losses],
                launches_traced=launches, launches_traced_per_step=per_step,
                wrapper_calls_per_step=wrapper_calls, stats=dict(step.stats),
-               repeatable=repeatable, loose=loose, times=times,
+               repeatable=repeatable, loose=loose,
                profile_window=dict(seconds=time.perf_counter() - t0, **win),
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     log(phase="compiled_train", **res)
@@ -1952,12 +1861,12 @@ def phase_kernels(torch, dev, params, cam, cfg, label="garden"):
         out["emission"] = dict(
             max_abs_err=max(float((a.long() - b.long()).abs().max())
                             for a, b in zip(got[:2], want[:2])),
-            ms=cuda_ms(torch, lambda: emission.emit_instances(*em_args), reps=100),
+            ms=time_ms(lambda: emission.emit_instances(*em_args), dev, 100)[0],
             ms_is="the wrapper's calls back to back; a launch is one C call, which runs "
                   "the kernel's two parts (the scan, then the emission)",
-            kernel_ms=cuda_ms(torch, lambda: emission.launch(*meta, tiles_x, cap, 0, n, None,
-                                                             bufs), reps=100),
-            plain_ms=cuda_ms(torch, lambda: binning.expand_instances_sorted(*em_args), reps=5),
+            kernel_ms=time_ms(lambda: emission.launch(*meta, tiles_x, cap, 0, n, None,
+                                                      bufs), dev, 100)[0],
+            plain_ms=time_ms(lambda: binning.expand_instances_sorted(*em_args), dev, 5)[0],
             library_ms=None,
             # five [N] int32 meta in, two [C] int32 out; its work is integer
             # work (a scan of the counts, an owner search and a division per
@@ -1990,8 +1899,8 @@ def phase_kernels(torch, dev, params, cam, cfg, label="garden"):
                                         rtol=1e-4),
                             check_close(f"{label} forward transmittance", tmap, tmap_p,
                                         atol=3e-5)),
-            ms=cuda_ms(torch, lambda: rasterize.forward_blend(*fw_args), reps=20),
-            plain_ms=cuda_ms(torch, lambda: rasterize.blend_plain(*fw_args), reps=2),
+            ms=time_ms(lambda: rasterize.forward_blend(*fw_args), dev, 20)[0],
+            plain_ms=time_ms(lambda: rasterize.blend_plain(*fw_args), dev, 2)[0],
             library_ms=None,
             # slab, tile ranges, img and T; the test's operations on the 32
             # pixels of each (instance, warp) pair the walk must take
@@ -2022,10 +1931,10 @@ def phase_kernels(torch, dev, params, cam, cfg, label="garden"):
             max_abs_err=check_rows(f"{label} backward blend (strip)", d_strip[:, lo:hi],
                                    d_strip_p[:, lo:hi]),
             max_err_is="normalised by each row's largest magnitude",
-            ms=cuda_ms(torch, lambda: rasterize.backward_blend(*bw_args), reps=20),
+            ms=time_ms(lambda: rasterize.backward_blend(*bw_args), dev, 20)[0],
             strip=dict(tile_rows=[r0, r0 + nr], instances=hi - lo,
-                       ms=cuda_ms(torch, lambda: rasterize.backward_blend(*st_args), reps=20)),
-            plain_ms=cuda_ms(torch, lambda: rasterize.backward_blend_plain(*st_args), reps=2),
+                       ms=time_ms(lambda: rasterize.backward_blend(*st_args), dev, 20)[0]),
+            plain_ms=time_ms(lambda: rasterize.backward_blend_plain(*st_args), dev, 2)[0],
             plain_scope=f"strip of tile rows {r0}..{r0 + nr - 1} ({hi - lo} instances)",
             library_ms=None, pairs=dict(visited=visited, passing=passing,
                                         contributing=contrib),
@@ -2065,14 +1974,13 @@ def phase_kernels(torch, dev, params, cam, cfg, label="garden"):
             max_abs_err=seg_err, adversarial_max_abs_err=a_err,
             run_lengths=dict(mean=float(runs.mean()),
                              p99=float(torch.quantile(runs, 0.99)), max=int(runs.max())),
-            ms=cuda_ms(torch, lambda: segment_reduce.segment_reduce(rows, gid_s, bounds),
-                       reps=20),
-            plain_ms=cuda_ms(torch, lambda: segment_reduce.segment_reduce_plain(
-                rows, gid_s, bounds), reps=5),
-            library_ms=cuda_ms(torch, lambda: torch.zeros((9, n), device=dev).index_add_(
-                1, k_ids, k_rows), reps=20),
-            gather_grad_ms=cuda_ms(torch, lambda: rasterize.gather_grad(
-                d_attr, binned.gauss_id, n), reps=20),
+            ms=time_ms(lambda: segment_reduce.segment_reduce(rows, gid_s, bounds), dev, 20)[0],
+            plain_ms=time_ms(lambda: segment_reduce.segment_reduce_plain(
+                rows, gid_s, bounds), dev, 5)[0],
+            library_ms=time_ms(lambda: torch.zeros((9, n), device=dev).index_add_(
+                1, k_ids, k_rows), dev, 20)[0],
+            gather_grad_ms=time_ms(lambda: rasterize.gather_grad(
+                d_attr, binned.gauss_id, n), dev, 20)[0],
             # 9 values per live row (the ids are not read), the bounds; 9 sums
             # per Gaussian
             bound=bound(4 * (9 * live + (n + 1) + 9 * n), 9 * live))
@@ -2115,17 +2023,18 @@ def phase_sharded_emulated(torch, dev, params, cam, cfg):
     g = torch.Generator(device=dev).manual_seed(8)
     cot = torch.randn((1, crop_h, w, 3), generator=g, device=dev)
 
-    # The path, its launch counters reset just before and read just after.
+    # The path, its launch counters reset just before and read just after;
+    # then timed.
     table_in = table.clone().requires_grad_(True)
+
+    def path():
+        img, counters = cg.exchange_render_emulated(table_in, st, row0)
+        return img, counters, torch.autograd.grad((img * cot).sum(), table_in)[0]
+
     torch.cuda.synchronize()
     emission.LAUNCHES = rasterize.FORWARD_LAUNCHES = rasterize.BACKWARD_LAUNCHES = 0
     sr.LAUNCHES = sr.TARGETS_LAUNCHES = sr.MULTIRANGE_LAUNCHES = 0
-    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    e0.record()
-    img, counters = cg.exchange_render_emulated(table_in, st, row0)
-    (d_table,) = torch.autograd.grad((img * cot).sum(), table_in)
-    e1.record()
-    e1.synchronize()
+    img, counters, d_table = path()
     launches = dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES,
                     backward_blend=rasterize.BACKWARD_LAUNCHES,
                     segment_reduce_targets=sr.TARGETS_LAUNCHES,
@@ -2137,6 +2046,7 @@ def phase_sharded_emulated(torch, dev, params, cam, cfg):
     if counters["capacity_overflow"] or not bool(torch.isfinite(img).all()) \
             or not bool(torch.isfinite(d_table).all()) or float(img.max()) <= 0:
         fail(f"sharded_emulated: strip not finite, black or overflowed ({counters})")
+    path_ms = time_ms(path, dev, SHARDED_PATH_REPS)[0]
 
     # The same strip, stage by stage: the inputs of the two reduce modes.
     with torch.no_grad():
@@ -2217,39 +2127,39 @@ def phase_sharded_emulated(torch, dev, params, cam, cfg):
         out = {}
         # Each mode in turns with the runs route: route, wrapper, wrapper,
         # route; the C call alone on buffers made beforehand.
-        route_t = [cuda_ms(torch, lambda: runs_targets(rows), reps=20)]
-        wrapper_t = [cuda_ms(torch, lambda: sr.segment_reduce_targets(rows, gid_s, targets, n),
-                             reps=20) for _ in range(2)]
-        route_t.append(cuda_ms(torch, lambda: runs_targets(rows), reps=20))
+        route_t = [time_ms(lambda: runs_targets(rows), dev, 20)[0]]
+        wrapper_t = [time_ms(lambda: sr.segment_reduce_targets(rows, gid_s, targets, n), dev,
+                             20)[0] for _ in range(2)]
+        route_t.append(time_ms(lambda: runs_targets(rows), dev, 20)[0])
         out["segment_reduce_targets"] = dict(
             max_abs_err=err_t, ms=statistics.median(wrapper_t), wrapper_ms=wrapper_t,
             ms_is="the wrapper's calls back to back (the median of two readings); a launch is one C "
                   "call, which searches the runs and sums them",
-            kernel_ms=cuda_ms(torch, lambda: sr.launch_targets(rows, gid_s, targets, n, out_t),
-                              reps=20),
+            kernel_ms=time_ms(lambda: sr.launch_targets(rows, gid_s, targets, n, out_t), dev,
+                              20)[0],
             runs_route_ms=route_t,
-            plain_ms=cuda_ms(torch, lambda: sr.segment_reduce_targets_plain(
-                rows, gid_s, targets, n), reps=5),
+            plain_ms=time_ms(lambda: sr.segment_reduce_targets_plain(
+                rows, gid_s, targets, n), dev, 5)[0],
             library_ms=None,
             library_is="none: no single PyTorch call sums a sorted slab's rows per target",
             # 9 values per live row, the targets; 9 sums per target
             bound=bound(4 * (9 * live + m + 9 * m), 9 * live))
-        route_m = [cuda_ms(torch, lambda: runs_multirange(g_red), reps=20)]
-        wrapper_m = [cuda_ms(torch, lambda: sr.segment_reduce_multirange(
-            g_red, lid, n_loc, SHARDED_TILE), reps=20) for _ in range(2)]
-        route_m.append(cuda_ms(torch, lambda: runs_multirange(g_red), reps=20))
+        route_m = [time_ms(lambda: runs_multirange(g_red), dev, 20)[0]]
+        wrapper_m = [time_ms(lambda: sr.segment_reduce_multirange(
+            g_red, lid, n_loc, SHARDED_TILE), dev, 20)[0] for _ in range(2)]
+        route_m.append(time_ms(lambda: runs_multirange(g_red), dev, 20)[0])
         out["segment_reduce_multirange"] = dict(
             max_abs_err=err_m, ms=statistics.median(wrapper_m), wrapper_ms=wrapper_m,
             ms_is="the wrapper's calls back to back (the median of two readings); a launch is one C "
                   "call, which searches the runs and sums them",
-            kernel_ms=cuda_ms(torch, lambda: sr.launch_multirange(
-                g_red, lid, n_loc, SHARDED_TILE, out_m), reps=20),
+            kernel_ms=time_ms(lambda: sr.launch_multirange(
+                g_red, lid, n_loc, SHARDED_TILE, out_m), dev, 20)[0],
             runs_route_ms=route_m,
-            plain_ms=cuda_ms(torch, lambda: sr.segment_reduce_multirange_plain(
-                g_red, lid, n_loc), reps=5),
-            library_ms=cuda_ms(torch, library_multirange, reps=20),
+            plain_ms=time_ms(lambda: sr.segment_reduce_multirange_plain(
+                g_red, lid, n_loc), dev, 5)[0],
+            library_ms=time_ms(library_multirange, dev, 20)[0],
             library_is="torch.zeros + index_add_ of all S x cap rows into n_local + 1 columns",
-            library_live_ms=cuda_ms(torch, library_live, reps=20),
+            library_live_ms=time_ms(library_live, dev, 20)[0],
             # 9 values and the id per live row; 9 sums per local Gaussian. A
             # block's sentinel tail is found by a search and never read.
             bound=bound(4 * (9 * live_x + live_x + 9 * n_loc), 9 * live_x))
@@ -2257,28 +2167,28 @@ def phase_sharded_emulated(torch, dev, params, cam, cfg):
             v["bound_ms"], v["bound_by"] = v.pop("bound")
 
         split = dict(
-            binning=cuda_ms(torch, lambda: binning.bin_and_sort(
+            binning=time_ms(lambda: binning.bin_and_sort(
                 cg.pg_from_table(tbl), w, h, cfg, row0, nrows, st.cap_shard,
-                gauss_capacity=gcap), reps=5),
-            forward_kernel=cuda_ms(torch, lambda: rasterize.forward_blend(
-                attr, starts, ends, tiles_x, row0, w, crop_h, cfg), reps=5),
-            backward_kernel=cuda_ms(torch, lambda: rasterize.backward_blend(
+                gauss_capacity=gcap), dev, 5)[0],
+            forward_kernel=time_ms(lambda: rasterize.forward_blend(
+                attr, starts, ends, tiles_x, row0, w, crop_h, cfg), dev, 5)[0],
+            backward_kernel=time_ms(lambda: rasterize.backward_blend(
                 attr, starts, ends, simg, tmap, cot[0].contiguous(), torch.zeros_like(tmap),
-                tiles_x, row0, w, crop_h, cfg), reps=5),
-            gid_sort=cuda_ms(torch, lambda: cg.sort_by_id(d_attr, gid), reps=5),
-            bucket_targets=cuda_ms(torch, lambda: cg.bucket_targets(stream_ids, st), reps=5),
-            reduce=cuda_ms(torch, lambda: sr.segment_reduce_targets(
-                rows, gid_s, targets, n), reps=5),
-            owner_local_ids=cuda_ms(torch, lambda: cg.owner_local_ids(targets, k0, st), reps=5),
-            owner_reduce=cuda_ms(torch, lambda: sr.segment_reduce_multirange(
-                g_red, lid, n_loc, SHARDED_TILE), reps=5))
+                tiles_x, row0, w, crop_h, cfg), dev, 5)[0],
+            gid_sort=time_ms(lambda: cg.sort_by_id(d_attr, gid), dev, 5)[0],
+            bucket_targets=time_ms(lambda: cg.bucket_targets(stream_ids, st), dev, 5)[0],
+            reduce=time_ms(lambda: sr.segment_reduce_targets(
+                rows, gid_s, targets, n), dev, 5)[0],
+            owner_local_ids=time_ms(lambda: cg.owner_local_ids(targets, k0, st), dev, 5)[0],
+            owner_reduce=time_ms(lambda: sr.segment_reduce_multirange(
+                g_red, lid, n_loc, SHARDED_TILE), dev, 5)[0])
     # The timing loops' launches count on no path.
     sr.TARGETS_LAUNCHES = sr.MULTIRANGE_LAUNCHES = 0
     log(phase="sharded_emulated", n=n, width=w, height=h, tile_shards=SHARDED_TILE,
         strip_rows=[row0, row0 + nrows], compaction=dict(active=True, gauss_capacity=gcap,
                                                          strip_visible=visible),
         capacity=st.cap_shard, num_instances=live, bucket_cap=cg.a2a_bucket_cap(st),
-        targets=m, owner_rows=live_x, counters=counters, path_ms=e0.elapsed_time(e1),
+        targets=m, owner_rows=live_x, counters=counters, path_ms=path_ms,
         launches=launches, split_ms=split, forward_max_abs_err=err_f,
         adversarial=adversarial,
         kernels={k: {kk: vv for kk, vv in v.items()} for k, v in out.items()})
@@ -2483,7 +2393,7 @@ def phase_trainer_rehearsal(torch, dev):
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     alloc0 = allocator(torch)
-    summary, launches = traced_launches(torch, lambda: trainer.main(
+    summary, launches = traced_launches(lambda: trainer.main(
         [*REHEARSAL, "--device", dev.type, "--out", str(out_dir / "rehearsal.ply")]))
     alloc1 = allocator(torch)
     losses = [v for _, v in summary["losses"]]
@@ -2531,7 +2441,7 @@ def phase_threefry(torch, dev, n=GARDEN["n"]):
         check_equal(f"threefry: garden draw {i}", got, want)
         if not bool(want.isfinite().all()) or not 0.9 < float(want.std()) < 1.1:
             fail(f"threefry: draw {i} is not a standard normal (std {float(want.std())})")
-    pair_ms = cuda_ms(torch, lambda: [prng.normal(k, (n, 3), dev) for k in keys], reps=5) \
+    pair_ms = time_ms(lambda: [prng.normal(k, (n, 3), dev) for k in keys], dev, 5)[0] \
         if dev.type == "cuda" else None
     log(phase="threefry", seconds=time.perf_counter() - t0, uniforms=1 << 23,
         garden_shape=[n, 3], bit_equal=True, pair_ms=pair_ms)
@@ -2627,8 +2537,6 @@ def jax_leaf_specs(n, sh_coeffs):
 # 0.005), and scene_extent 1.0, so that the clone/split limit of 0.01
 # falls inside the garden scales (0.002-0.02).
 DENSIFY_ROUND = dict(alive=1_000_000, seed=11, faint=0.02, scene_extent=1.0)
-# Timed calls a reading of the eager and compiled rounds in turns.
-DENSIFY_ITERS = 4
 # aten ops that launch no kernel: views and metadata.
 NO_KERNEL = {"view", "_unsafe_view", "detach", "select", "slice", "expand", "unsqueeze",
              "squeeze", "alias", "as_strided", "t", "permute", "transpose", "reshape",
@@ -2677,8 +2585,7 @@ def densify_round(torch, dev, params, spec=DENSIFY_ROUND):
     (``compile_densify``, as ``apps/train.py`` jits it) with two keys, each
     a key tensor: a capture, then a replay with no new capture, each bit
     for bit the eager round from the same key in every state tensor; the
-    eager and compiled rounds timed in turns (host-differenced and CUDA
-    events), the capture's seconds, a profiler window over one call of each
+    capture's seconds, a profiler window over one call of each
     (launches by name, the device's idle share), the kernels and bytes of
     the round's aten ops (``launch_traffic``), and the allocator before and
     after. Returns the eager round's ms on the card (CUDA events, draws
@@ -2717,9 +2624,9 @@ def densify_round(torch, dev, params, spec=DENSIFY_ROUND):
     want = densify_and_prune(state, key, dcfg, extent, noise=noise.cpu(), noise2=noise2.cpu())
     ms = ms_given = None
     if dev.type == "cuda":
-        ms = cuda_ms(torch, lambda: densify_and_prune(card, key, dcfg, extent), reps=3)
-        ms_given = cuda_ms(torch, lambda: densify_and_prune(
-            card, key, dcfg, extent, noise=noise, noise2=noise2), reps=3)
+        ms = time_ms(lambda: densify_and_prune(card, key, dcfg, extent), dev, 3)[0]
+        ms_given = time_ms(lambda: densify_and_prune(
+            card, key, dcfg, extent, noise=noise, noise2=noise2), dev, 3)[0]
 
     # The ranking's contract: candidates by average gradient, best first
     # (ties by slot), take the free slots in ascending order.
@@ -2785,7 +2692,6 @@ def compiled_round(torch, dev, card, keys, dcfg, extent, eager_first) -> dict:
     """``densify_round``'s compiled part: the round compiled, called with
     each of ``keys`` as a key tensor, against the eager round from the same
     host key (``eager_first``: its state tensors for the first key)."""
-    from tpusplat_torch.bench.profile_detail import profile_window
     from tpusplat_torch.train import prng
     from tpusplat_torch.train.checkpoint import state_tensors
     from tpusplat_torch.train.densify import compile_densify, densify_and_prune
@@ -2815,8 +2721,6 @@ def compiled_round(torch, dev, card, keys, dcfg, extent, eager_first) -> dict:
     def compiled_call():
         return round_(card, key_tensors[1], dcfg, extent)
 
-    times = timed_turns(torch, dict(eager=eager_round, compiled=compiled_call),
-                        iters=DENSIFY_ITERS)
     windows = {name: profile_window(fn, dev, steps=1)
                for name, fn in (("eager", eager_round), ("compiled", compiled_call))}
     if dev.type == "cuda" and not windows["compiled"]["profiler_device_events"]:
@@ -2826,7 +2730,7 @@ def compiled_round(torch, dev, card, keys, dcfg, extent, eager_first) -> dict:
     state_bytes = sum(v.numel() * v.element_size() for v in state_tensors(card).values())
     alloc1 = allocator(torch)
     round_.clear()
-    return dict(stats=stats, bit_equal=True, times=times, windows=windows,
+    return dict(stats=stats, bit_equal=True, windows=windows,
                 ops=traffic, ops_bound_ms=traffic["bytes"] / PEAK_BYTES * 1e3,
                 state_bound_ms=2 * state_bytes / PEAK_BYTES * 1e3, state_bytes=state_bytes,
                 allocator=[alloc0, alloc1])
@@ -2954,7 +2858,7 @@ def phase_data_training(torch, dev, params, cams, cfg, capture=CAPTURE, argv=DAT
     prng.normal = recorded_normal
     try:
         with contextlib.redirect_stderr(err):
-            summary, traced = traced_launches(torch, lambda: trainer.main(
+            summary, traced = traced_launches(lambda: trainer.main(
                 ["--data", str(root), *argv, "--ckpt", str(ckpt), "--out", str(ply),
                  "--device", dev.type]))
     finally:
@@ -3189,7 +3093,7 @@ def phase_session(torch, dev, params, cfg):
     frame_ms = [float(line.split()[2]) for line in out.splitlines()
                 if line.startswith("frame ")]
     sess.draw, sess.draw_profiled = draw, draw_profiled  # the keys again, at the new size
-    again, traced = traced_launches(torch, lambda: run_interactive(
+    again, traced = traced_launches(lambda: run_interactive(
         sess, keys=SESSION_KEYS, out=io.StringIO(), cols=96, profile_every=2))
     launches = dict(emission=traced["emission"], forward_blend=traced["forward_blend"])
     if again["frames"] != n_frames or min(launches.values()) < n_frames:
@@ -3223,14 +3127,17 @@ def phase_dryrun(torch, dev):
 
 
 def phase_profile_detail(torch, dev):
-    """The per-stage profiler at the garden config, with its profiler
-    window's device idle share."""
+    """The per-stage profile at the garden config: the stage table from the
+    program's stamps on the device clock, and its profiler window's device
+    idle share."""
     from tpusplat_torch.bench import profile_detail
 
     t0 = time.perf_counter()
     res = profile_detail.run("garden", dev)
     win = res["train_window"]
     log(phase="profile_detail", seconds=time.perf_counter() - t0, **res)
+    if res["clock"] != "device":
+        fail(f"profile_detail: the stage table read the {res['clock']} clock")
     if win["overflow"]:
         fail(f"profile_detail: the profiled train steps overflowed ({win['overflow']})")
     if not win["profiler_device_events"]:
@@ -3295,12 +3202,12 @@ def compiled_headline(torch, dev, conf, params, cam, cfg, reset, counters) -> di
     where two eager calls are, else within rtol 1e-4; one replayed step in
     a profiler window, every kernel counted from the trace at least once,
     with the wrappers' counters reset just before (a replay runs no
-    wrapper: they must not move); eager and compiled times in turns, the
-    capture seconds; at garden a profiler window over three compiled steps.
-    Logged as the phase ``compiled_headline``."""
+    wrapper: they must not move); the capture seconds; at garden a profiler
+    window over three compiled steps. Logged as the phase
+    ``compiled_headline``."""
     import functools
 
-    from tpusplat_torch.bench import headline, profile_detail
+    from tpusplat_torch.bench import headline
     from tpusplat_torch.compiled import compile_step
 
     trainable, alive = headline.split_trainable(params)
@@ -3312,7 +3219,7 @@ def compiled_headline(torch, dev, conf, params, cam, cfg, reset, counters) -> di
     got = dict(zip(names, step(*args)))  # the capture and its first replay
     torch.cuda.synchronize()
     reset()
-    out, traced = traced_launches(torch, lambda: step(*args))
+    out, traced = traced_launches(lambda: step(*args))
     replayed = dict(zip(names, out))
     moved = counters()
     launches = {k: traced[k] for k in TRAIN_KERNELS}
@@ -3324,14 +3231,10 @@ def compiled_headline(torch, dev, conf, params, cam, cfg, reset, counters) -> di
     for what, outs in (("first call", got), ("replay", replayed)):
         loose.update(hold_to_eager(f"compiled headline {conf} {what}", outs, e1, repeatable,
                                    0.0, 1e-4))
-    times = timed_turns(torch, dict(eager=functools.partial(headline.step, *args),
-                                    compiled=functools.partial(step, *args)))
     res = dict(config=conf, repeatable=repeatable, loose=loose,
-               launches_replay_traced=launches,
-               stats=dict(step.stats), times=times)
+               launches_replay_traced=launches, stats=dict(step.stats))
     if conf == "garden":
-        res["profile_window"] = profile_detail.profile_window(
-            functools.partial(step, *args), dev, steps=3)
+        res["profile_window"] = profile_window(functools.partial(step, *args), dev, steps=3)
     log(phase="compiled_headline", **res)
     step.clear()
     return res
@@ -3349,7 +3252,7 @@ def phase_headline(torch, dev):
     profiler window over three headline steps (the device's idle share and
     its top kernels); at bicycle, every kernel of the step held against its
     plain version on bicycle's inputs (``phase_kernels``)."""
-    from tpusplat_torch.bench import headline, profile_detail
+    from tpusplat_torch.bench import headline
     from tpusplat_torch.ops import emission, rasterize, segment_reduce
 
     def counters():
@@ -3416,8 +3319,8 @@ def phase_headline(torch, dev):
         if conf == "garden":
             t0 = time.perf_counter()
             trainable, alive = headline.split_trainable(params)
-            win = profile_detail.profile_window(
-                lambda: headline.step(trainable, alive, cam, cfg), dev, steps=3)
+            win = profile_window(lambda: headline.step(trainable, alive, cam, cfg), dev,
+                                 steps=3)
             res["profile_window"] = win
             log(phase="headline_profile", config=conf, seconds=time.perf_counter() - t0,
                 host_ms=lines[0]["host_ms"], event_ms=lines[0]["event_ms"], **win)

@@ -51,6 +51,7 @@ import subprocess
 import sys
 
 import chip_smoke as cs
+from tpusplat_torch.bench import _timing
 
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT = ROOT / "build" / "compare_kernels"
@@ -156,12 +157,12 @@ def build_versions(kernel: str, versions: dict[str, pathlib.Path]):
     return fns
 
 
-def in_turns(torch, versions, runners, reps):
+def in_turns(dev, versions, runners, reps):
     """Each runner timed in turns (tree, versions, versions reversed, tree);
     runners[name] is {label: fn}."""
     turns = []
     for name in ["tree", *versions, *reversed(versions), "tree"]:
-        turns.append(dict(version=name, **{f"{label}_ms": cs.cuda_ms(torch, fn, reps=reps)
+        turns.append(dict(version=name, **{f"{label}_ms": _timing.time_ms(fn, dev, reps)[0]
                                            for label, fn in runners[name].items()}))
         log(phase="turn", **turns[-1])
     return turns
@@ -210,7 +211,7 @@ def compare_forward(torch, dev, fns, versions):
         cs.check_equal(f"{name} forward image", got[0], want[0])
         cs.check_equal(f"{name} forward transmittance", got[1], want[1])
         log(phase="check", version=name, image="bit-equal", transmittance="bit-equal")
-    turns = in_turns(torch, versions, {k: {"forward": (lambda k=k: run(k))}
+    turns = in_turns(dev, versions, {k: {"forward": (lambda k=k: run(k))}
                                        for k in ["tree", *fns]}, reps=20)
     return dict(num_instances=live, turns=turns)
 
@@ -241,7 +242,7 @@ def compare_backward(torch, dev, fns, versions):
         err = cs.check_rows(f"{name} backward", got[:, :live], want[:, :live])
         log(phase="check", version=name, max_err=err,
             bit_equal=bool(torch.equal(got[:, :live], want[:, :live])))
-    turns = in_turns(torch, versions, {k: {"backward": (lambda k=k: run(k))}
+    turns = in_turns(dev, versions, {k: {"backward": (lambda k=k: run(k))}
                                        for k in ["tree", *fns]}, reps=20)
     return dict(num_instances=live, turns=turns)
 
@@ -288,9 +289,11 @@ def compare_emission(torch, dev, fns, versions):
     for name in fns:
         runners[name] = dict(kernel=lambda name=name: emit_into(fns[name], bufs),
                              call=lambda name=name: call(name))
-    turns = in_turns(torch, versions, runners, reps=100)
+    turns = in_turns(dev, versions, runners, reps=100)
     for name in ["tree", *fns]:
-        outs[name] = {label: device_ms_by_name(torch, fn, reps=20)
+        # each device operation's ms a call in one profiler window of 20
+        outs[name] = {label: {op: ms / 20 for op, (_, ms) in
+                              _timing.profiled(fn, dev, calls=20).ops.items()}
                       for label, fn in runners[name].items()}
         log(phase="profiler", version=name, device_ms_by_kernel=outs[name])
     return dict(num_instances=int(want[2]), capacity=cap, turns=turns, profiler=outs)
@@ -324,24 +327,9 @@ def compare_segment_reduce(torch, dev, fns, versions):
     for name in fns:
         cs.check_equal(f"{name} segment reduce", run(name), want)
         log(phase="check", version=name, sums="bit-equal")
-    turns = in_turns(torch, versions, {k: {"segment_reduce": (lambda k=k: run(k))}
+    turns = in_turns(dev, versions, {k: {"segment_reduce": (lambda k=k: run(k))}
                                        for k in ["tree", *fns]}, reps=20)
     return dict(rows=gid_s.shape[0], gaussians=n, turns=turns)
-
-
-def device_ms_by_name(torch, fn, reps: int):
-    """{kernel name: device ms a call} under ``torch.profiler`` over
-    ``reps`` calls after a warm one; empty where it sees no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and e.self_device_time_total}
 
 
 def main(argv) -> int:
@@ -359,7 +347,7 @@ def main(argv) -> int:
     versions = {k: pathlib.Path(v).resolve() for k, v in (a.split("=", 1) for a in argv[1:])}
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = cs.nvidia_smi()
+    smi = _timing.nvidia_smi()
     log(phase="device", kernel=kernel, kind=torch.cuda.get_device_name(0), nvidia_smi=smi)
     report = _build.build(verbose=True)[SOURCES[kernel]]["log"]
     log(phase="build", version="tree", ptxas=[ln.strip() for ln in report.splitlines()

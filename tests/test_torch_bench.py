@@ -28,13 +28,18 @@ SQUARE = dict(n=8000, w=128, h=128, sh=1, cap=8, srange=(0.02, 0.1))
 
 
 def test_profile_detail_rehearsal():
-    res = profile_detail.run(TINY, "cpu", reps=1, window_steps=1)
-    for key in ("preprocess_fwd", "depth_argsort_N", "expand_instances", "expand_ref",
-                "tile_sort_C", "tile_boundaries", "bin_and_sort_total", "pack_gather",
-                "raster_fwd_kernel", "raster_bwd_kernel", "bwd_grad_sort_by_gid",
-                "bwd_segment_reduce", "e2e_fwd", "e2e_fwd_bwd", "num_instances", "capacity",
-                "mpix_per_s"):
-        assert key in res, key
+    """The stage table comes from the stamps of a compiled frame's and a
+    compiled train step's replays, under the stage names of PERF.md and the
+    cells; on the CPU the stamps take the host clock and say so."""
+    res = profile_detail.run(TINY, "cpu", reps=2, window_steps=1)
+    assert list(res["frame"]) == ["preprocess", "binning", "blend", "gap", "unit"]
+    assert list(res["train"]) == ["preprocess", "binning", "blend", "loss", "blend_bwd",
+                                  "preprocess_bwd", "adam", "writeback", "gap", "unit"]
+    for table in (res["frame"], res["train"]):
+        assert all(v >= 0 for v in table.values()) and table["unit"] > 0
+        stages = sum(v for k, v in table.items() if k not in ("gap", "unit"))
+        assert stages == pytest.approx(table["unit"], rel=0.2)
+    assert res["mpix_per_s"] > 0
     assert res["clock"] == "host" and 0 < res["num_instances"] <= res["capacity"]
     win = res["train_window"]
     # No device on the CPU: the window says so rather than report a share.
@@ -53,7 +58,7 @@ def test_profile_detail_rehearsal():
 ])
 def test_profiler_busy_union(intervals, lo, hi, want_us):
     """The device-busy time is the union of the intervals inside the window."""
-    assert profile_detail._merged_ms(intervals, lo, hi) == pytest.approx(want_us / 1e3)
+    assert _timing._merged_ms(intervals, lo, hi) == pytest.approx(want_us / 1e3)
 
 
 GATE_SIZES = dict(strip=dict(n=3000, w=128, h=128), compact=dict(n=8000, w=64, h=512),
@@ -191,6 +196,10 @@ def test_timing_on_the_cpu():
     ms, out = _timing.time_ms(lambda: 7, "cpu", reps=2)
     assert out == 7 and ms >= 0
     assert _timing.clock("cpu") == "host" and _timing.device_info("cpu") == {"kind": "cpu"}
+    calls = []
+    win = _timing.profiled(lambda: calls.append(len(calls)) or len(calls), "cpu", calls=3)
+    assert win.out == 3 and calls == [0, 1, 2]
+    assert win.window_ms > 0 and win.busy_ms == 0 and win.ops == {} and win.counts() == {}
 
 
 MAINS = {"profile_detail": profile_detail.main, "kernel_bench": kernel_bench.main,

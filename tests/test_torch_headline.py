@@ -24,7 +24,7 @@ from tpusplat.ops.preprocess import preprocess as jax_preprocess
 from tpusplat.render import render_stages as jax_render_stages
 from tpusplat.train.step import merge_trainable as jax_merge, split_trainable as jax_split
 from tpusplat.types import to_numpy
-from tpusplat_torch.bench import headline
+from tpusplat_torch.bench import _timing, headline
 
 torch.set_num_threads(2)
 
@@ -159,19 +159,45 @@ def test_main_refusals(monkeypatch, capsys, env, code, says):
 
 def test_differenced_time(monkeypatch):
     """(t_big - t_small) / iters over runs of max(1, iters // 4) and
-    iters + max(1, iters // 4) calls, each ended by a host read: on a clock
+    iters + max(1, iters // 4) calls, the median of three pairs: on a clock
     that a call moves by one second, exactly 1000 ms a call."""
     clock = [0.0]
 
     def fn():
         clock[0] += 1.0
-        return (torch.tensor(1.0),)
 
-    monkeypatch.setattr(headline.time, "perf_counter", lambda: clock[0])
-    assert headline.differenced_ms(fn, 5) == 1000.0
-    assert clock[0] == 1 + 6
-    assert headline.differenced_ms(fn, 2) == 1000.0
-    assert clock[0] == 7 + 1 + 3
+    monkeypatch.setattr(_timing.time, "perf_counter", lambda: clock[0])
+    assert _timing.host_ms(fn, "cpu", 5) == 1000.0
+    assert clock[0] == 3 * (1 + 6)
+    assert _timing.host_ms(fn, "cpu", 2) == 1000.0
+    assert clock[0] == 21 + 3 * (1 + 3)
+
+
+def test_differenced_time_takes_the_median_pair(monkeypatch):
+    """A pair that reads negative (the small run slowed by the host) does
+    not make the time: the median pair's does."""
+    # (t0, t1) of the small run, then of the big one, for each of three
+    # pairs of 1 and 5 calls: 1 s and 5 s, 10 s and 1 s, 1 s and 5 s
+    readings = iter([0, 1, 1, 6, 6, 16, 16, 17, 17, 18, 18, 23])
+    monkeypatch.setattr(_timing.time, "perf_counter", lambda: next(readings))
+    assert _timing.host_ms(lambda: None, "cpu", 4) == 1000.0
+
+
+def test_differenced_time_never_reads_zero(monkeypatch):
+    """A clock that no call moves reads 0 in every pair: after its readings
+    with more calls the timer raises, with both runs' times, rather than
+    return 0."""
+    calls = [0]
+
+    def fn():
+        calls[0] += 1
+
+    monkeypatch.setattr(_timing.time, "perf_counter", lambda: 42.0)
+    with pytest.raises(RuntimeError, match=r"host_ms: the median pair reads 0\.0 ms"):
+        _timing.host_ms(fn, "cpu", 4)
+    want = sum(_timing.HOST_PAIRS * (2 * max(1, n // 4) + n)
+               for n in (4 << k for k in range(_timing.HOST_READINGS)))
+    assert calls[0] == want
 
 
 def test_harness_lines_on_the_cpu(port_inputs, capsys):
@@ -215,7 +241,7 @@ def test_profile_window_over_the_step(port_inputs):
     """The profiler window that reads the headline step's idle share on the
     card, rehearsed on the CPU: the trace holds no device activity, and the
     result says so."""
-    from tpusplat_torch.bench.profile_detail import profile_window
+    from tpusplat_torch.bench._timing import profile_window
 
     params, cam, cfg = port_inputs
     trainable, alive = headline.split_trainable(params)

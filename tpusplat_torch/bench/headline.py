@@ -25,8 +25,9 @@ the eager step, call :func:`measure` on ``step`` itself.
 
 **The time** is ``bench.py``'s too: one warm call, then the host clock over
 a run of ``max(1, iters // 4)`` calls and over one of ``iters + max(1,
-iters // 4)``, each ended by a host read of its last result, and ``dt =
-(t_big - t_small) / iters``. So host time the card does not hide counts.
+iters // 4)``, each fenced by a synchronise, and ``dt = (t_big - t_small) /
+iters``; so host time the card does not hide counts. ``_timing.host_ms``
+takes the median of three such pairs and never returns 0 or less.
 One more call after the timed runs must show no overflow, or the harness
 raises. A line before the headline also gives the same step's CUDA-event
 time (``_timing.time_ms``), so host time and device time can be read apart.
@@ -68,7 +69,7 @@ import time
 
 import torch
 
-from tpusplat_torch.bench._timing import clock, emit, require_card, time_ms
+from tpusplat_torch.bench._timing import clock, emit, host_ms, require_card, time_ms
 from tpusplat_torch.bench.profile_detail import CONFIGS, scene
 from tpusplat_torch.compiled import compile_step
 from tpusplat_torch.render import render_stages
@@ -104,23 +105,6 @@ def forward_step(trainable: dict, alive, camera, cfg):
     return img.sum(), aux["num_instances"], aux["capacity_overflow"]
 
 
-def _host_seconds(fn, calls: int) -> float:
-    t0 = time.perf_counter()
-    out = None
-    for _ in range(calls):
-        out = fn()
-    out[0].item()  # the host read fences the run
-    return time.perf_counter() - t0
-
-
-def differenced_ms(fn, iters: int) -> float:
-    """``bench.py``'s time of one call: (t_big - t_small) / iters, in ms."""
-    pad = max(1, iters // 4)
-    t_small = _host_seconds(fn, pad)
-    t_big = _host_seconds(fn, iters + pad)
-    return (t_big - t_small) / iters * 1e3
-
-
 def measure(fn, device, iters: int, what: str) -> dict:
     """The warm call, the differenced host time, the overflow check after it
     and the CUDA-event time of ``fn`` (a step bound to its inputs)."""
@@ -132,13 +116,13 @@ def measure(fn, device, iters: int, what: str) -> dict:
         f"overflow={int(out[2])}")
     if int(out[2]) > 0:
         log("WARNING: capacity overflow: raise capacity_mult")
-    host_ms = differenced_ms(fn, iters)
+    host = host_ms(fn, device, iters)
     final = fn()
     if int(final[2]) != 0:
         raise AssertionError(
             f"bench invalid: capacity overflow {int(final[2])} during timed runs")
     event_ms, _ = time_ms(fn, device, reps=iters)
-    return dict(first_s=first_s, host_ms=host_ms, event_ms=event_ms,
+    return dict(first_s=first_s, host_ms=host, event_ms=event_ms,
                 event_clock=clock(device), num_instances=int(final[1]))
 
 

@@ -1,32 +1,41 @@
-"""Per-stage profiler at production (garden) scale (counterpart of
+"""Per-stage profile at production (garden) scale (counterpart of
 ``tpusplat/bench/profile_detail.py``).
 
-Each sub-stage of binning and of the backward runs and is timed alone
-(CUDA events, after a warm call), so that work goes to the true bottleneck.
-Then one ``torch.profiler`` window (CPU and CUDA activities) over three
-``train_step`` calls after a warm-up step gives what the stage times cannot:
-the window's ms, the device's busy ms (the union of its kernel and copy
-intervals), the idle share ``1 - busy / window``, the launches a step, and
-the ten kernels with the most device time. The profiler's recording slows
-the host's dispatch, so the same steps are timed again without it, and
-``idle_share_unprofiled_est`` is the share of that step time the window's
-busy time leaves. Prints a table to stderr and one JSON line.
+The stage table is the program's own. A compiled frame (``compile_render``)
+and a compiled train step (``compile_train_step``), what the viewer and
+the trainer replay, are captured and replayed ``reps`` times each; every
+replay stamps its stages (``tpusplat_torch.trace``), and the table gives
+the median over the replays of each stage's ms under the names PERF.md
+and the benchmark's cells use (preprocess, binning, blend, loss,
+blend_bwd, preprocess_bwd, adam, writeback), of the gap from one replay's
+``end`` to the next one's first stamp, and of the whole replay
+(``unit``). The stamps read the device clock on the card and the host
+clock on the CPU (a rehearsal); the result names which (``clock``). First
+the emission kernel is held bit for bit to its plain version on the
+scene. Then one ``torch.profiler`` window over three replays of the
+compiled train step (``_timing.profile_window``) gives what the stages
+cannot: the window's ms, the device's busy ms, the idle share, the
+launches a step, the ten kernels with the most device time, and the idle
+share the busy time leaves in the same replays unprofiled. Prints a table
+to stderr and one JSON line.
 
     python -m tpusplat_torch.bench.profile_detail [garden|bicycle|mid|small]
     python -m tpusplat_torch.bench.profile_detail strip [n_shards]
 
-(strip: the stage times of one strip of tiles_y / n_shards tile rows at
-garden scale, the per-card split of the tile-sharded path.)
+(strip: each stage of one strip of tiles_y / n_shards tile rows at garden
+scale, the per-card split of the tile-sharded path, timed alone by CUDA
+events: that path runs eagerly and has no stamps.)
 """
 
 from __future__ import annotations
 
 import dataclasses
+import statistics
 import sys
 
 import torch
 
-from tpusplat_torch.bench._timing import clock, emit, require_card, sync, time_ms
+from tpusplat_torch.bench._timing import clock, emit, profile_window, require_card, time_ms
 
 CONFIGS = dict(
     garden=dict(n=1_400_000, w=1920, h=1080, sh=3, cap=4, srange=(0.002, 0.02)),
@@ -35,7 +44,6 @@ CONFIGS = dict(
     small=dict(n=10_000, w=256, h=256, sh=0, cap=8, srange=(0.004, 0.04)),
 )
 EYE, TARGET, FOV = [0.0, 0.5, 9.0], [0.0, 0.0, 0.0], 60.0
-TOP_KERNELS = 10
 
 
 def scene(conf, device, seed: int = 0):
@@ -64,159 +72,43 @@ def _same(name, got, want):
             raise AssertionError(f"profile_detail: {name} differs from its plain version")
 
 
-def stages(params, cam, cfg, device, reps: int = 5) -> dict:
-    """Each stage of a frame and of its backward, timed alone."""
+def check_emission(params, cam, cfg) -> int:
+    """The emission kernel held bit for bit to ``expand_instances_sorted``
+    on the scene's frame, and no capacity overflow; the instance count."""
     from tpusplat_torch.ops import binning
     from tpusplat_torch.ops.emission import emit_instances
     from tpusplat_torch.ops.preprocess import preprocess
-    from tpusplat_torch.ops.rasterize import (
-        backward_blend, forward_blend, pack_instances, sort_grad_rows,
-    )
-    from tpusplat_torch.ops.segment_reduce import segment_reduce
-    from tpusplat_torch.render import render_stages
 
-    n, w, h = params.num_gaussians, cam.width, cam.height
-    capacity = cfg.instance_capacity(n)
-    tiles_x, tiles_y = cfg.tile_grid(w, h)
-    num_tiles = tiles_x * tiles_y
-    res: dict = {}
-
-    def t(fn):
-        return time_ms(fn, device, reps)
-
+    n = params.num_gaussians
+    tiles_x, _ = cfg.tile_grid(cam.width, cam.height)
     with torch.no_grad():
-        res["preprocess_fwd"], pg = t(lambda: preprocess(params, cam, cfg))
-        res["depth_argsort_N"], meta = t(lambda: binning.depth_sorted_meta(pg))
-        res["expand_instances"], em = t(lambda: emit_instances(*meta, tiles_x, capacity, 0, n))
-        res["expand_ref"], em_ref = t(
-            lambda: binning.expand_instances_sorted(*meta, tiles_x, capacity, 0, n))
-        _same("the emission", em, em_ref)
-
-        def tile_sort():
-            tile_s, perm = torch.sort(em[0], stable=True)
-            return tile_s, em[1][perm]
-
-        res["tile_sort_C"], (tile_s, _) = t(tile_sort)
-        edges = torch.arange(num_tiles + 1, dtype=torch.int32, device=tile_s.device)
-        res["tile_boundaries"], _ = t(lambda: torch.searchsorted(tile_s, edges, out_int32=True))
-        res["bin_and_sort_total"], binned = t(lambda: binning.bin_and_sort(pg, w, h, cfg))
-        res["pack_gather"], attr = t(lambda: pack_instances(pg, binned))
-        starts, ends = binned.tile_start, binned.tile_end
-        res["raster_fwd_kernel"], (img, tmap, _) = t(
-            lambda: forward_blend(attr, starts, ends, tiles_x, 0, w, h, cfg))
-        d_img = torch.full_like(img, 1.0 / (w * h * 3))
-        d_tmap = torch.zeros_like(tmap)
-        res["raster_bwd_kernel"], d_attr = t(
-            lambda: backward_blend(attr, starts, ends, img, tmap, d_img, d_tmap, tiles_x, 0, w,
-                                   h, cfg))
-        res["bwd_grad_sort_by_gid"], sorted_ = t(
-            lambda: sort_grad_rows(d_attr, binned.gauss_id, n))
-        res["bwd_segment_reduce"], _ = t(lambda: segment_reduce(*sorted_))
-        res["e2e_fwd"], _ = t(lambda: render_stages(params, cam, cfg))
-
-    def fwd_bwd():
-        leaves = {f: getattr(params, f).detach().requires_grad_(True)
-                  for f in ("means", "log_scales", "quats", "opacities", "sh")}
-        img, _ = render_stages(dataclasses.replace(params, **leaves), cam, cfg)
-        return torch.autograd.grad(torch.mean(img * img), list(leaves.values()))
-
-    res["e2e_fwd_bwd"], _ = t(fwd_bwd)
-    res["num_instances"] = int(binned.num_instances)
-    res["capacity"] = capacity
-    res["mpix_per_s"] = w * h / (res["e2e_fwd_bwd"] * 1e-3) / 1e6
-    if int(binned.overflow):
-        raise AssertionError(f"profile_detail: capacity overflow {int(binned.overflow)}")
-    return res
+        meta = binning.depth_sorted_meta(preprocess(params, cam, cfg))
+        args = (*meta, tiles_x, cfg.instance_capacity(n), 0, n)
+        em = emit_instances(*args)
+        _same("the emission", em, binning.expand_instances_sorted(*args))
+    if int(em[3]):
+        raise AssertionError(f"profile_detail: capacity overflow {int(em[3])}")
+    return int(em[2])
 
 
-def _merged_ms(intervals, lo, hi) -> float:
-    """Length (ms) of the union of [start, end) us intervals clipped to
-    [lo, hi)."""
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted((max(s, lo), min(e, hi)) for s, e in intervals):
-        if e <= s:
-            continue
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy / 1e3
+def stamped_stages(compiled, call, reps: int, device):
+    """``call()``, a call of the compiled step ``compiled``, once (the
+    capture) and then ``reps`` times; from the replays' stamps, the median
+    of each stage's ms, of the gap between replays and of a whole replay
+    (first stamp to ``end``), and the stamps' clock."""
+    from tpusplat_torch import trace
 
-
-def profile_window(fn, device, steps: int = 3) -> dict:
-    """One ``torch.profiler`` window over ``steps`` calls of ``fn`` (warmed
-    by the caller): window ms, device-busy ms, idle share, launches a call
-    and the top kernels by device time; then the same calls unprofiled
-    (CUDA events), and the idle share that the window's busy time leaves in
-    them. On the CPU (a rehearsal) the trace holds no device activity, and
-    the result says so."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    sync(device)
-    cuda = torch.device(device).type == "cuda"
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with profile(activities=acts) as prof:
-        with record_function("window"):
-            for _ in range(steps):
-                fn()
-            sync(device)
-    events = prof.events()
-    win = next(e for e in events if e.name == "window" and e.device_type == DeviceType.CPU)
-    lo, hi = win.time_range.start, win.time_range.end
-    dev_events = [e for e in events if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False) and e.name != "window"]
-    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in dev_events)
-    out = dict(steps=steps, window_ms=(hi - lo) / 1e3, profiler_device_events=len(dev_events))
-    if not dev_events:
-        out.update(device_busy_ms=None, idle_share=None,
-                   note="the profiler recorded no device activity in the window")
-        return out
-    # The same calls without the profiler, whose host-side recording slows
-    # the dispatch and so stretches the window: the device's kernel time a
-    # call over this call time estimates the idle share of a plain call.
-    step_ms, _ = time_ms(fn, device, steps, 0)
-    busy = _merged_ms([(e.time_range.start, e.time_range.end) for e in dev_events], lo, hi)
-    by_name: dict = {}
-    for e in dev_events:
-        if e.name.startswith(("Memcpy", "Memset")):
-            continue
-        ms, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, count + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
-    out.update(
-        device_busy_ms=busy, idle_share=1.0 - busy / out["window_ms"],
-        step_ms_unprofiled=step_ms,
-        idle_share_unprofiled_est=max(0.0, 1.0 - busy / steps / step_ms),
-        kernel_launches_per_step=(len(dev_events) - copies) / steps,
-        copies_per_step=copies / steps,
-        device_ms_per_step=sum(ms for ms, _ in by_name.values()) / steps,
-        top_kernels=[dict(name=k[:160], ms_per_step=v[0] / steps, calls_per_step=v[1] / steps)
-                     for k, v in top])
-    return out
-
-
-def train_window(params, cam, cfg, device, steps: int = 3) -> dict:
-    """:func:`profile_window` over ``steps`` train steps after a warm-up
-    step, with the overflow of the last step."""
-    from tpusplat_torch.train.step import create_train_state, make_optimizer, train_step
-
-    gen = torch.Generator(device=params.device).manual_seed(1)
-    target = torch.rand((cam.height, cam.width, 3), generator=gen, device=params.device)
-    opt = make_optimizer(scene_extent=4.0)
-    last = {}
-    last["state"], _ = train_step(create_train_state(params), cam, target, cfg, opt)  # warm-up
-
-    def one():
-        last["state"], last["metrics"] = train_step(last["state"], cam, target, cfg, opt)
-
-    out = profile_window(one, device, steps)
-    m = last["metrics"]
-    return dict(out, overflow=int(m["capacity_overflow"]) + int(m["gauss_overflow"]))
+    for _ in range(reps + 1):
+        call()
+    stamps = trace.read(device)
+    units = stamps.units(compiled.tag)[-reps:]
+    if len(units) != reps:
+        raise AssertionError(f"profile_detail: {len(units)} stamped replays, not {reps}")
+    names = [name for name, _ in units[-1].marks[:-1]]
+    res = {name: statistics.median(u.stage_ms()[name] for u in units) for name in names}
+    res["gap"] = statistics.median(trace.gaps(units))
+    res["unit"] = statistics.median((u.end_ns - u.start_ns) / 1e6 for u in units)
+    return res, stamps.clock
 
 
 def strip_stages(params, cam, cfg, device, shards: int, reps: int = 5) -> dict:
@@ -296,13 +188,53 @@ def _table(res: dict) -> None:
     sys.stderr.flush()
 
 
+def _stage_table(frame: dict, train: dict) -> None:
+    print(f"{'stage (ms)':<15} {'frame':>10} {'train':>10}", file=sys.stderr)
+    for name in train:
+        shown = f"{frame[name]:10.3f}" if name in frame else " " * 10
+        print(f"{name:<15} {shown} {train[name]:10.3f}", file=sys.stderr)
+    sys.stderr.flush()
+
+
 def run(conf="garden", device="cuda", reps: int = 5, window_steps: int = 3) -> dict:
-    """Stage times and the profiler window at one configuration."""
+    """The stage table of a compiled frame and a compiled train step from
+    their stamps, the emission's check and the profiler window over the
+    compiled train step at one configuration."""
+    from tpusplat_torch.render import compile_render
+    from tpusplat_torch.train.step import (
+        compile_train_step, create_train_state, make_optimizer,
+    )
+
     params, cam, cfg = scene(conf, device)
-    res = stages(params, cam, cfg, device, reps)
+    w, h = cam.width, cam.height
+    res = dict(config=conf if isinstance(conf, str) else "custom",
+               num_instances=check_emission(params, cam, cfg),
+               capacity=cfg.instance_capacity(params.num_gaussians))
+    render = compile_render()
+    with torch.no_grad():
+        res["frame"], res["clock"] = stamped_stages(render, lambda: render(params, cam, cfg),
+                                                    reps, device)
+    del render
+
+    gen = torch.Generator(device=params.device).manual_seed(1)
+    target = torch.rand((h, w, 3), generator=gen, device=params.device)
+    opt = make_optimizer(scene_extent=4.0)
+    step = compile_train_step()
+    last = {"state": create_train_state(params)}
+
+    def one():
+        last["state"], last["metrics"] = step(last["state"], cam, target, cfg, opt)
+
+    res["train"], _ = stamped_stages(step, one, reps, device)
+    res["mpix_per_s"] = w * h / (res["train"]["unit"] * 1e-3) / 1e6
+    _stage_table(res["frame"], res["train"])
     _table(res)
-    res["train_window"] = train_window(params, cam, cfg, device, window_steps)
-    return dict(config=conf if isinstance(conf, str) else "custom", clock=clock(device), **res)
+    win = profile_window(one, device, window_steps)
+    m = last["metrics"]
+    res["train_window"] = dict(win, overflow=int(m["capacity_overflow"])
+                               + int(m["gauss_overflow"]))
+    step.clear()
+    return res
 
 
 def run_strip(shards: int = 8, device="cuda", conf="garden", reps: int = 5) -> dict:

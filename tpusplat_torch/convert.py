@@ -45,31 +45,6 @@ def processed_from_numpy(uv, conic, opacity, color, depth, aabb, ntiles, radius,
         depth=t(depth, f), aabb=t(aabb, i), ntiles=t(ntiles, i), radius=t(radius, f))
 
 
-def train_state_from_numpy(params: dict, mu: dict, nu: dict, count: dict, step,
-                          grad_accum, grad_count, max_radii, device="cuda"):
-    """The port's TrainState from the JAX package's, given as numpy:
-    ``params`` the GaussianParams fields (``alive`` included); ``mu``,
-    ``nu`` and ``count`` per parameter group, Adam's moments and update
-    count as the group's ``ScaleByAdamState`` holds them under
-    ``opt_state.inner_states[group].inner_state[0]``; ``step`` and the
-    densification statistics."""
-    from tpusplat_torch.train.step import TRAINABLE, TrainState
-
-    dev = resolve_device(device)
-
-    def f32(x):
-        return torch.tensor(np.asarray(x, np.float32), device=dev)
-
-    def i32(x):
-        return torch.tensor(np.asarray(x, np.int32), device=dev)
-
-    return TrainState(
-        params=params_from_numpy(**params, device=dev),
-        mu={k: f32(mu[k]) for k in TRAINABLE}, nu={k: f32(nu[k]) for k in TRAINABLE},
-        count={k: i32(count[k]) for k in TRAINABLE}, step=i32(step),
-        grad_accum=f32(grad_accum), grad_count=f32(grad_count), max_radii=f32(max_radii))
-
-
 def config_from_fields(fields: dict) -> RenderConfig:
     """A RenderConfig from the JAX RenderConfig's fields
     (``dataclasses.asdict``). ``use_pallas`` is dropped: the port routes by
