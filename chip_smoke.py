@@ -61,6 +61,20 @@ Phases, one output line each; any failure exits non-zero:
      sharded step's exchange table (``pack_exchange_table``) on one rank,
      its parameters' gradients against the plain route's (alone: as 4a,
      with ``cs.phase_preprocess_bwd(torch, d)``);
+ 4d. adam: the Adam kernel (``csrc/adam.cu``, ``train.adam.fused_adam``)
+     against the plain route (``adam_update`` and its ``torch.where`` gate)
+     on the card, out of place (its inputs left as they were) and in place,
+     with the overflow gate open and shut (a shut gate leaves the state
+     bit-identical either way): at garden and bicycle scale, and on an
+     adversarial set at 1001 Gaussians (N * 3 and N floats end in a partial
+     float4): counts 0, 1 and around and past means_lr_max_steps, zero
+     gradients, second moments near 0, dead slots (zero gradients and
+     moments on every other Gaussian, also at both scales), a constant and
+     a rising means schedule; bit for bit; its ms (its C call alone out of
+     place and in place, and its wrapper; also with every other Gaussian
+     dead) beside its byte bound (28 B a parameter), the
+     plain route's ms and ``torch.optim.Adam(fused=True)``'s step as
+     ``library_ms`` (alone: as 4a, with ``cs.phase_adam(torch, d)``);
  4b. trace: the tracer's stamp kernel (``csrc/stamp.cu``) at the parity
      shapes: ``%globaltimer`` read by 4000 eager and 2000 captured stamps
      (steps, share of zero steps, monotonic), the anchor's spread over
@@ -81,7 +95,8 @@ Phases, one output line each; any failure exits non-zero:
      renders of a second random scene, one warm-up step and three steps
      with the regrow retry, counters reset just before and read just
      after (each call moves every kernel's, the preprocess forward's and
-     backward's by exactly one), and the cudaMalloc calls of each step;
+     backward's and the Adam kernel's by exactly one, none of them an
+     in-place Adam launch), and the cudaMalloc calls of each step;
  6b. compiled: each compiled entry point at the garden shapes against its
      eager function on the same inputs (``tpusplat_torch.compiled``): three
      ``render_auto`` frames against ``render_stages`` and a forced regrow
@@ -93,9 +108,15 @@ Phases, one output line each; any failure exits non-zero:
      their largest), and those outputs are named; one capture and a replay
      a call; each compiled call in a profiler window, each kernel counted
      from the trace at least once a call (a train step's the preprocess
-     forward and backward kernels too), the wrappers' counters (reset
-     just before) still at a replay; the capture seconds, and a
-     ``profile_window`` over three compiled train steps. The frames and
+     forward and backward kernels and the Adam kernel too), the wrappers'
+     counters (reset just before) still at a replay, the capture's Adam
+     launches its warm-up calls out of place and its captured call in
+     place; in the trace of one more replayed step, the Adam kernel alone
+     between the ``adam`` and ``writeback`` stamps but for fewer other
+     kernels than the plain route's update launches, and no more
+     write-back copies than the state has leaves the kernel does not
+     write; the capture seconds, and a ``profile_window`` over three
+     compiled train steps. The frames and
      steps are not timed here: the benchmark's cells measure them;
   7. kernels at the garden shapes: each against its plain version, timed
      with CUDA events (``_timing.time_ms``: after two warm calls, as every
@@ -254,7 +275,7 @@ import statistics
 import sys
 import time
 
-from tpusplat_torch.bench._timing import nvidia_smi, profile_window, profiled, time_ms
+from tpusplat_torch.bench._timing import COPIES, nvidia_smi, profile_window, profiled, time_ms
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W power limit).
 PEAK_FP32_FLOPS = 67e12
@@ -1346,6 +1367,200 @@ def phase_preprocess_bwd(torch, dev):
     return res
 
 
+# The adam phase: the groups' update count in the checked states, the
+# adversarial set's Gaussians (N * 3 and N floats end in a partial float4),
+# and its counts around the means' decay (means_lr_max_steps 30,000).
+ADAM_COUNT = 5
+ADAM_ADVERSARIAL_N = 1001
+ADAM_COUNTS = (0, 1, 29_999, 30_000, 30_001, 100_000)
+ADAM_BYTES = 28  # a parameter: p, g, m and v read, p, m and v written
+
+
+def adam_inputs(torch, n, dev, seed, count=ADAM_COUNT, zero_grad=False, tiny_v=False,
+                dead=False):
+    """Seeded (params, grads, mu, nu, count) dicts of the five groups at
+    ``n`` Gaussians; ``zero_grad`` zeroes the gradients, ``tiny_v`` sets
+    the second moments to 1e-38 (a subnormal after the decay), ``dead``
+    zeroes the gradients and both moments of every other Gaussian (a dead
+    slot's, or one no view has seen)."""
+    from tpusplat_torch.train import step as tstep
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = dict(means=(n, 3), log_scales=(n, 3), quats=(n, 4), opacities=(n,),
+                  sh=(n, 16, 3))
+
+    def r(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    params = {k: r(s, 1.0) for k, s in shapes.items()}
+    grads = {k: torch.zeros(s, device=dev) if zero_grad else r(s, 1e-3)
+             for k, s in shapes.items()}
+    mu = {k: r(s, 1e-4) for k, s in shapes.items()}
+    nu = {k: torch.full(s, 1e-38, device=dev) if tiny_v else r(s, 1e-4) ** 2
+          for k, s in shapes.items()}
+    if dead:
+        for d in (grads, mu, nu):
+            for t in d.values():
+                t[::2] = 0.0
+    counts = {k: torch.tensor(count, dtype=torch.int32, device=dev) for k in tstep.TRAINABLE}
+    return params, grads, mu, nu, counts
+
+
+def overflow_counters(torch, dev, gated: bool):
+    return tuple(torch.tensor(v, dtype=torch.int32, device=dev) for v in (int(gated), 0, 0))
+
+
+def plain_gated_adam(torch, opt, params, grads, mu, nu, count, overflow):
+    """The plain route's update: adam_update and apply_gradients's
+    torch.where gate of each new tensor."""
+    from tpusplat_torch.train import step as tstep
+
+    ok = (overflow[0] + overflow[1] + overflow[2]) == 0
+    new = tstep.adam_update(opt, params, grads, mu, nu, count)[:3]
+    return tuple({k: torch.where(ok, d[k], old[k]) for k in d}
+                 for d, old in zip(new, (params, mu, nu)))
+
+
+def bit_gaps(torch, got: tuple, want: tuple) -> dict:
+    """Per tensor (p., m., v. and the group): bit-equality (NaN payloads
+    included) and, where it fails, the largest difference."""
+    out = {}
+    for name, g, w in zip("pmv", got, want):
+        for k in w:
+            equal = torch.equal(g[k].view(torch.int32), w[k].view(torch.int32))
+            out[f"{name}.{k}"] = dict(equal=equal, gap=0.0 if equal else float(
+                (g[k] - w[k]).abs().max()))
+    return out
+
+
+def check_adam(torch, what, opt, inputs, gated, problems) -> dict:
+    """The kernel out of place and in place against the plain route on
+    ``inputs``, with the overflow gate open or shut: bit for bit, the
+    out-of-place call leaving its inputs as they were; what breaks is
+    appended to ``problems``."""
+    from tpusplat_torch.train import adam
+    from tpusplat_torch.train import step as tstep
+
+    params, grads, mu, nu, count = inputs
+    dev = params["means"].device
+    overflow = overflow_counters(torch, dev, gated)
+    sched = {k: opt.schedule(k) for k in params}
+    want = plain_gated_adam(torch, opt, params, grads, mu, nu, count, overflow)
+    before = tuple({k: t.clone() for k, t in d.items()} for d in (params, mu, nu))
+    got = adam.fused_adam(params, grads, mu, nu, count, sched, overflow, tstep.B1, tstep.B2,
+                          tstep.EPS)
+    out = dict(out_of_place=bit_gaps(torch, got, want),
+               inputs_kept=all(v["equal"] for v in bit_gaps(
+                   torch, (params, mu, nu), before).values()))
+    del got
+    state = tuple({k: t.clone() for k, t in d.items()} for d in (params, mu, nu))
+    adam.fused_adam(state[0], grads, state[1], state[2], count, sched, overflow, tstep.B1,
+                    tstep.B2, tstep.EPS, in_place=True)
+    out["in_place"] = bit_gaps(torch, state, want)
+    for route in ("out_of_place", "in_place"):
+        bad = {k: v["gap"] for k, v in out[route].items() if not v["equal"]}
+        if bad:
+            problems.append(f"{what} {route}: {bad}")
+    if not out["inputs_kept"]:
+        problems.append(f"{what}: the out-of-place call changed its inputs")
+    return out
+
+
+def time_adam(torch, opt, inputs) -> dict:
+    """The kernel's ms (its C call alone out of place into buffers made
+    beforehand and in place, and its wrapper's) beside its byte bound, the
+    plain route's (adam_update and its gates) and, as ``library_ms`` only,
+    ``torch.optim.Adam(fused=True)``'s step on the same tensors (the port
+    never calls it), by CUDA events."""
+    from tpusplat_torch.train import adam
+    from tpusplat_torch.train import step as tstep
+
+    params, grads, mu, nu, count = inputs
+    dev = params["means"].device
+    overflow = overflow_counters(torch, dev, False)
+    sched = {k: opt.schedule(k) for k in params}
+    hyper = (tstep.B1, tstep.B2, tstep.EPS)
+    n_params = sum(p.numel() for p in params.values())
+    res = dict(parameters=n_params, bytes=ADAM_BYTES * n_params,
+               bound_ms=bound(ADAM_BYTES * n_params, 0)[0], kernel_ms=[], in_place_ms=[],
+               wrapper_ms=[])
+    outs = tuple({k: torch.empty_like(d[k]) for k in d} for d in (params, mu, nu))
+    state = tuple({k: t.clone() for k, t in d.items()} for d in (params, mu, nu))
+    for _ in range(2):
+        res["kernel_ms"].append(time_ms(lambda: adam.launch(
+            params, grads, mu, nu, count, sched, overflow, hyper, *outs), dev, 20)[0])
+        res["in_place_ms"].append(time_ms(lambda: adam.launch(
+            state[0], grads, state[1], state[2], count, sched, overflow, hyper, *state),
+            dev, 20)[0])
+        res["wrapper_ms"].append(time_ms(lambda: adam.fused_adam(
+            params, grads, mu, nu, count, sched, overflow, *hyper), dev, 20)[0])
+    del outs, state
+    res["plain_ms"] = time_ms(lambda: plain_gated_adam(
+        torch, opt, params, grads, mu, nu, count, overflow), dev, 5)[0]
+    leaves = {k: p.clone() for k, p in params.items()}
+    for k, t in leaves.items():
+        t.grad = grads[k]
+    library = torch.optim.Adam(
+        [dict(params=[leaves[k]], lr=opt.schedule(k)[0]) for k in leaves],
+        betas=(tstep.B1, tstep.B2), eps=tstep.EPS, fused=True)
+    res["library_ms"] = time_ms(library.step, dev, 20)[0]
+    res["library_is"] = "torch.optim.Adam(fused=True).step, constant learning rates, ungated"
+    del library, leaves
+    res["share_of_bound"] = res["bound_ms"] / min(res["in_place_ms"] + res["kernel_ms"])
+    return res
+
+
+def phase_adam(torch, dev):
+    """The Adam kernel on the card (phase 4d of the module docstring)."""
+    from tpusplat_torch.bench.profile_detail import CONFIGS
+    from tpusplat_torch.train import step as tstep
+
+    t0 = time.perf_counter()
+    problems, res = [], {}
+    opt = tstep.make_optimizer(scene_extent=4.0)
+    for label in PREPROCESS_SCENES:
+        n = CONFIGS[label]["n"]
+        inputs = adam_inputs(torch, n, dev, seed=21)
+        res[label] = dict(n=n, check={gate: check_adam(torch, f"{label} {gate}", opt, inputs,
+                                                       gate == "gated", problems)
+                                      for gate in ("open", "gated")},
+                          times=time_adam(torch, opt, inputs))
+        del inputs
+        # Every other Gaussian dead: zero dividends, which the kernel keeps
+        # off the division's slow path.
+        inputs = adam_inputs(torch, n, dev, seed=22, dead=True)
+        res[label]["check"]["half dead"] = check_adam(torch, f"{label} half dead", opt,
+                                                      inputs, False, problems)
+        res[label]["half_dead_times"] = time_adam(torch, opt, inputs)
+        del inputs
+        torch.cuda.empty_cache()
+
+    rising = tstep.Optimizer(means_lr=1e-4, means_lr_final=2e-4, means_lr_max_steps=10)
+    constant = tstep.make_optimizer(means_lr_max_steps=0)
+    cases = [(f"count {c}", opt, dict(count=c)) for c in ADAM_COUNTS]
+    cases += [("zero gradients", opt, dict(zero_grad=True)),
+              ("v near 0", opt, dict(tiny_v=True)),
+              ("zero gradients, v near 0", opt, dict(zero_grad=True, tiny_v=True)),
+              ("dead slots", opt, dict(dead=True)),
+              ("constant means lr", constant, dict(count=3)),
+              ("rising means lr, count 4", rising, dict(count=4)),
+              ("rising means lr, count 40", rising, dict(count=40))]
+    adversarial = {}
+    for i, (what, o, kw) in enumerate(cases):
+        inputs = adam_inputs(torch, ADAM_ADVERSARIAL_N, dev, seed=100 + i, **kw)
+        for gate in ("open", "gated"):
+            out = check_adam(torch, f"adversarial {what} {gate}", o, inputs, gate == "gated",
+                             problems)
+            adversarial[f"{what} {gate}"] = all(
+                v["equal"] for route in ("out_of_place", "in_place")
+                for v in out[route].values()) and out["inputs_kept"]
+    res["adversarial"] = dict(n=ADAM_ADVERSARIAL_N, bit_equal=adversarial)
+    log(phase="adam", seconds=time.perf_counter() - t0, problems=problems[:40], **res)
+    if problems:
+        fail(f"adam: {len(problems)} problems, first {problems[:5]}")
+    return res
+
+
 TRACE_FRAME = ["preprocess", "binning", "blend", "end"]
 TRACE_STEP = ["preprocess", "binning", "blend", "loss", "blend_bwd", "preprocess_bwd", "adam",
               "writeback", "end"]
@@ -1526,14 +1741,16 @@ def phase_garden_serving(torch, dev, params, cams, cfg):
 
 
 def phase_garden_training(torch, dev, params, cams, cfg):
-    """Three train_steps at the garden shapes through all six kernels: each
-    call launches emission, both blends and segment_reduce, and the
-    preprocess forward and backward kernels exactly once each."""
+    """Three train_steps at the garden shapes through all seven kernels:
+    each call launches emission, both blends and segment_reduce, and the
+    preprocess forward and backward kernels and the Adam kernel (out of
+    place: an eager step writes fresh tensors) exactly once each."""
     from tpusplat_torch import random_scene
     from tpusplat_torch.config import regrow
     from tpusplat_torch.ops import emission, rasterize, segment_reduce
     from tpusplat_torch.ops import preprocess as pre
     from tpusplat_torch.render import compile_render, render_auto
+    from tpusplat_torch.train import adam
     from tpusplat_torch.train import step as tstep
 
     n = params.num_gaussians
@@ -1551,10 +1768,12 @@ def phase_garden_training(torch, dev, params, cams, cfg):
 
     counters = (lambda: (emission.LAUNCHES, rasterize.FORWARD_LAUNCHES,
                          rasterize.BACKWARD_LAUNCHES, segment_reduce.LAUNCHES,
-                         pre.LAUNCHES, pre.BACKWARD_LAUNCHES))
+                         pre.LAUNCHES, pre.BACKWARD_LAUNCHES, adam.LAUNCHES,
+                         adam.IN_PLACE_LAUNCHES))
     emission.LAUNCHES = rasterize.FORWARD_LAUNCHES = 0
     rasterize.BACKWARD_LAUNCHES = segment_reduce.LAUNCHES = 0
     pre.LAUNCHES = pre.BACKWARD_LAUNCHES = 0
+    adam.LAUNCHES = adam.IN_PLACE_LAUNCHES = 0
     calls = 0
     state, losses, retries, device_allocs = state0, [], 0, []
     torch.cuda.reset_peak_memory_stats()
@@ -1565,11 +1784,13 @@ def phase_garden_training(torch, dev, params, cams, cfg):
             new, metrics = tstep.train_step(state, cam, targets[i], cfg, opt)
             calls += 1
             moved = [a - b for a, b in zip(counters(), before)]
-            if not all(m > 0 for m in moved):
+            if not all(m > 0 for m in moved[:7]):
                 fail(f"garden step {i}: a kernel was not launched ({counters()})")
-            if moved[4:] != [1, 1]:
-                fail(f"garden step {i}: preprocess launches {moved[4:]}, expected one "
+            if moved[4:6] != [1, 1]:
+                fail(f"garden step {i}: preprocess launches {moved[4:6]}, expected one "
                      "forward and one backward")
+            if moved[6:] != [1, 0]:
+                fail(f"garden step {i}: adam launches {moved[6:]}, expected one, out of place")
             cfg2, changes = regrow(cfg, metrics, n)
             if changes is None:
                 break
@@ -1584,9 +1805,11 @@ def phase_garden_training(torch, dev, params, cams, cfg):
         device_allocs.append(torch.cuda.memory_stats().get("num_device_alloc", 0) - allocs)
         losses.append(float(metrics["loss"]))
     launches = dict(zip(("emission", "forward_blend", "backward_blend", "segment_reduce",
-                         "preprocess", "preprocess_bwd"), counters()))
-    if (launches["preprocess"], launches["preprocess_bwd"]) != (calls, calls):
-        fail(f"garden training: preprocess launches {launches}, expected {calls} each")
+                         "preprocess", "preprocess_bwd", "adam"), counters()))
+    if (launches["preprocess"], launches["preprocess_bwd"], launches["adam"]) != (
+            calls, calls, calls) or adam.IN_PLACE_LAUNCHES:
+        fail(f"garden training: launches {launches}, in place {adam.IN_PLACE_LAUNCHES}, "
+             f"expected {calls} each and none in place")
     if not all(math.isfinite(v) for v in losses):
         fail(f"garden training: loss not finite {losses}")
     if int(state.step) != len(cams):
@@ -1614,7 +1837,7 @@ KERNEL_SYMBOLS = dict(emission="emit_kernel", forward_blend="forward_kernel",
                       segment_reduce_targets="targets_kernel",
                       segment_reduce_multirange="multirange_kernel",
                       preprocess="preprocess_kernel",
-                      preprocess_bwd="preprocess_backward_kernel")
+                      preprocess_bwd="preprocess_backward_kernel", adam="adam_kernel")
 PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+)(?:<[^(]*>)?\(")
 
 
@@ -1630,13 +1853,17 @@ def traced_launches(fn):
     return window.out, port_launches(window.counts())
 
 
+def port_kernel(name: str):
+    """The port kernel's function a device operation's name gives, or None."""
+    m = PORT_KERNEL.match(name)
+    return m.group(1) if m else None
+
+
 def port_launches(names: dict) -> dict:
     """Each port kernel's launches among device operations counted by name."""
     seen = collections.Counter()
     for name, count in names.items():
-        m = PORT_KERNEL.match(name)
-        if m:
-            seen[m.group(1)] += count
+        seen[port_kernel(name)] += count
     return {k: seen[sym] for k, sym in KERNEL_SYMBOLS.items()}
 
 
@@ -1669,6 +1896,48 @@ def stats_delta(step, before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in step.stats.items()}
 
 
+def replayed_update(torch, opt, state, compiled_step) -> dict:
+    """The device operations between a replayed train step's ``adam`` and
+    ``writeback`` stamps and between its ``writeback`` and ``end`` stamps,
+    by name from a profiler trace: the Adam kernel once and fewer other
+    kernels than the plain route's update alone launches (traced here on the
+    state's tensors), and a write-back that copies only the state's leaves
+    the kernel did not write in place. Fails otherwise."""
+    from tpusplat_torch.compiled import flatten
+    from tpusplat_torch.train import step as tstep
+
+    dev = state.step.device
+    trainable, _ = tstep.split_trainable(state.params)
+    overflow = overflow_counters(torch, dev, False)
+    chain = profiled(lambda: plain_gated_adam(torch, opt, trainable, state.mu, state.mu,
+                                              state.nu, state.count, overflow), dev)
+    chain_kernels = sum(1 for name in chain.order if not name.startswith(COPIES))
+    window = profiled(compiled_step, dev)
+    names = window.order
+    marks = {}
+    for stage in ("adam", "writeback", "end"):
+        hits = [i for i, name in enumerate(names) if name == f"tpusplat_stamp_{stage}"]
+        if len(hits) != 1:
+            fail(f"replayed train step: {len(hits)} {stage} stamps in the trace")
+        marks[stage] = hits[0]
+    update = names[marks["adam"] + 1:marks["writeback"]]
+    writeback = names[marks["writeback"] + 1:marks["end"]]
+    kernels = [port_kernel(name) for name in update if not name.startswith(COPIES)]
+    leaves = []
+    flatten(state, leaves)
+    # every leaf but the parameters, the alive mask and both moments
+    copies_expected = len(leaves) - 3 * len(tstep.TRAINABLE) - 1
+    out = dict(adam_kernel=kernels.count("adam_kernel"),
+               other_kernels=len(kernels) - kernels.count("adam_kernel"),
+               plain_chain_kernels=chain_kernels, writeback_ops=len(writeback),
+               writeback_copies_expected=copies_expected,
+               writeback_names=sorted(collections.Counter(n[:60] for n in writeback).items()))
+    if out["adam_kernel"] != 1 or out["other_kernels"] >= chain_kernels \
+            or len(writeback) > copies_expected:
+        fail(f"replayed train step: the update or its write-back is not the kernel's: {out}")
+    return out
+
+
 def phase_compiled(torch, dev, params, cams, cfg):
     """Each compiled entry point at the garden shapes against its eager
     function on the same inputs: three ``render_auto`` frames against
@@ -1683,9 +1952,11 @@ def phase_compiled(torch, dev, params, cams, cfg):
     a replay, which runs no wrapper. Captures and replays prove the graphs
     ran. The capture seconds, and a profiler window over three compiled
     train steps."""
+    from tpusplat_torch.compiled import WARMUP_CALLS
     from tpusplat_torch.ops import emission, rasterize, segment_reduce
     from tpusplat_torch.ops import preprocess as pre
     from tpusplat_torch.render import compile_render, render_auto, render_stages
+    from tpusplat_torch.train import adam
     from tpusplat_torch.train import step as tstep
     from tpusplat_torch.train.checkpoint import state_tensors
 
@@ -1693,12 +1964,14 @@ def phase_compiled(torch, dev, params, cams, cfg):
         return dict(emission=emission.LAUNCHES, forward_blend=rasterize.FORWARD_LAUNCHES,
                     backward_blend=rasterize.BACKWARD_LAUNCHES,
                     segment_reduce=segment_reduce.LAUNCHES, preprocess=pre.LAUNCHES,
-                    preprocess_bwd=pre.BACKWARD_LAUNCHES)
+                    preprocess_bwd=pre.BACKWARD_LAUNCHES, adam=adam.LAUNCHES,
+                    adam_in_place=adam.IN_PLACE_LAUNCHES)
 
     def reset():
         emission.LAUNCHES = rasterize.FORWARD_LAUNCHES = 0
         rasterize.BACKWARD_LAUNCHES = segment_reduce.LAUNCHES = 0
         pre.LAUNCHES = pre.BACKWARD_LAUNCHES = 0
+        adam.LAUNCHES = adam.IN_PLACE_LAUNCHES = 0
 
     n, w, h = params.num_gaussians, cams[0].width, cams[0].height
     res = dict(n=n, width=w, height=h)
@@ -1793,7 +2066,12 @@ def phase_compiled(torch, dev, params, cams, cfg):
         (state, m), traced, moved = traced_call(
             "compiled train_step", i, lambda cam=cam: step(state, cam, target, cfg, opt),
             ("emission", "forward_blend", "backward_blend", "segment_reduce", "preprocess",
-             "preprocess_bwd"))
+             "preprocess_bwd", "adam"))
+        # The capture: its warm-up calls write fresh tensors, the captured
+        # call the donated state's own buffers.
+        if i == 0 and (moved["adam"], moved["adam_in_place"]) != (WARMUP_CALLS + 1, 1):
+            fail(f"compiled train_step capture: adam launches {moved['adam']}, in place "
+                 f"{moved['adam_in_place']}; expected {WARMUP_CALLS + 1}, one in place")
         losses.append(m["loss"])
         per_step.append(traced)
         wrapper_calls.append(moved)
@@ -1820,12 +2098,13 @@ def phase_compiled(torch, dev, params, cams, cfg):
         held[0], m = step(held[0], cams[0], target, cfg, opt)
         return m
 
+    update = replayed_update(torch, opt, held[0], compiled_step)
     t0 = time.perf_counter()
     win = profile_window(compiled_step, dev, steps=3)
     res = dict(n=n, width=w, height=h, losses=[float(v) for v in losses],
                launches_traced=launches, launches_traced_per_step=per_step,
                wrapper_calls_per_step=wrapper_calls, stats=dict(step.stats),
-               repeatable=repeatable, loose=loose,
+               repeatable=repeatable, loose=loose, update=update,
                profile_window=dict(seconds=time.perf_counter() - t0, **win),
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     log(phase="compiled_train", **res)
@@ -3421,6 +3700,7 @@ def run(torch, dev, kind: str, smi: str) -> int:
     phase_grad_6k(torch, dev)
     phase_preprocess(torch, dev)
     phase_preprocess_bwd(torch, dev)
+    phase_adam(torch, dev)
     phase_trace(torch, dev)
 
     params, cams, cfg = garden_inputs(torch, dev)

@@ -154,14 +154,16 @@ def _merged_ms(intervals, lo, hi) -> float:
 class Window:
     """What one ``torch.profiler`` window over some calls saw: the last
     call's result, the window's ms on the host clock, the device's busy ms
-    in it (the union of its operations' intervals), and each device
-    operation (kernel, copy or set) by name as ``(count, ms)``. On the CPU
-    the trace holds no device operation."""
+    in it (the union of its operations' intervals), each device operation
+    (kernel, copy or set) by name as ``(count, ms)``, and the operations'
+    names in the order they started. On the CPU the trace holds no device
+    operation."""
 
     out: object
     window_ms: float
     busy_ms: float
     ops: dict
+    order: list = dataclasses.field(default_factory=list)
 
     def counts(self) -> dict:
         """Each device operation's count by name."""
@@ -195,8 +197,10 @@ def profiled(fn, device, calls: int = 1) -> Window:
             continue
         count, ms = ops.get(e.name, (0, 0.0))
         ops[e.name] = (count + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
-        spans.append((e.time_range.start, e.time_range.end))
-    return Window(out, (hi - lo) / 1e3, _merged_ms(spans, lo, hi), ops)
+        spans.append((e.time_range.start, e.time_range.end, e.name))
+    spans.sort()
+    return Window(out, (hi - lo) / 1e3, _merged_ms([s[:2] for s in spans], lo, hi), ops,
+                  [name for _, _, name in spans])
 
 
 def profile_window(fn, device, steps: int = 3) -> dict:

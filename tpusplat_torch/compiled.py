@@ -32,8 +32,11 @@ resize"). :func:`compile_step` gives the port the same contract on the card:
   argument ``state``, whose new value is element 0 of the returned tuple) is
   updated in place in its static buffers, inside the graph, and those
   buffers are returned, as ``donate_argnames`` lets XLA reuse a train state's
-  buffers. The next step with that state copies nothing; the state a caller
-  held before is overwritten. Every other tensor of the result is copied out
+  buffers. While the captured body runs, :func:`donated` names those
+  buffers, so the step may write a new value straight into its buffer (the
+  train step's Adam kernel does); the write-back then skips it. The next
+  step with that state copies nothing; the state a caller held before is
+  overwritten. Every other tensor of the result is copied out
   of the graph's memory, so that it stays as it was when the next call
   replays, as a JAX array does.
 - **Old keys are freed**: each compiled step keeps its ``KEEP`` most recently
@@ -66,12 +69,14 @@ to running eagerly.
 
 The step must be a function of its arguments: no host read of a tensor's
 value (it would become a constant of the graph), no copy from the host, no
-write into its inputs. Gradients do not flow back into the inputs.
+write into its inputs but a donated buffer that :func:`donated` names.
+Gradients do not flow back into the inputs.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import inspect
 import time
@@ -84,6 +89,26 @@ from tpusplat_torch import trace
 KEEP = 2  # entries a compiled step keeps
 WARMUP_CALLS = 2  # eager calls on a side stream before a capture
 _SIDE_STREAMS: dict = {}  # device index -> the stream every capture there warms up on
+_DONATED: set = set()  # ids of the donated buffers of the body that is running
+
+
+def donated(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a donated input buffer of the compiled step whose
+    body is running: the step may write its new value into it in place, as
+    the body's write-back copies nothing into a buffer that is its own new
+    value. False in the warm-up calls before a capture (their writes would
+    land in the buffers the capture starts from) and outside any body."""
+    return id(t) in _DONATED
+
+
+@contextlib.contextmanager
+def _donating(buffers):
+    ids = {id(t) for t in buffers}
+    _DONATED.update(ids)
+    try:
+        yield
+    finally:
+        _DONATED.difference_update(ids)
 
 
 def _side_stream(device: torch.device):
@@ -173,7 +198,8 @@ class _Entry:
         """The step on the static buffers, then each donated argument's new
         value written into its buffers, stamped with the step's tag."""
         with trace.tagged(self.tag):
-            out = self.fn(**self.args())
+            with _donating(self.inputs[i] for i in self.donated):
+                out = self.fn(**self.args())
             if self.donate:
                 trace.stage("writeback", self.device)
             for name, idx in self.donate.items():
@@ -213,6 +239,14 @@ class _Entry:
         self.out_leaves = []
         flatten(self.out, self.out_leaves)
 
+    def warm_up(self):
+        """The step's eager calls on the static buffers before a capture:
+        unstamped, their results dropped, and no buffer marked donated, so
+        the buffers the capture starts from stay as they were."""
+        with trace.quiet():
+            for _ in range(WARMUP_CALLS):
+                self.fn(**self.args())
+
     def _capture_graph(self):
         with torch.cuda.device(self.device):
             trace.prepare(self.device)
@@ -220,9 +254,7 @@ class _Entry:
             side.wait_stream(main)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.stream(side):
-                with trace.quiet():
-                    for _ in range(WARMUP_CALLS):
-                        self.fn(**self.args())
+                self.warm_up()
                 graph.capture_begin(pool=torch.cuda.graph_pool_handle())
                 try:
                     out = self.body()

@@ -7,8 +7,10 @@ rotation and SH fixed lrs), as ``optax.multi_transform`` of
 ``optax.adam(eps=1e-15)`` per group in the JAX package. The Adam here is
 written out, because ``torch.optim.Adam`` cannot skip an update without
 reading the overflow counters on the host: an overflowed step is gated on
-the device with ``torch.where``, and the caller polls the counters one step
-late (``tpusplat_torch/trainer.py``).
+the device, and the caller polls the counters one step late
+(``tpusplat_torch/trainer.py``). :func:`adam_update` with a ``torch.where``
+gate is the CPU's update and the yardstick; on the card one launch of a
+fused kernel (:mod:`tpusplat_torch.train.adam`) gives the same bits.
 
 :func:`train_step` runs eagerly and is functional (it returns a new state
 and leaves the old one intact, as in JAX). :func:`compile_train_step` is
@@ -26,9 +28,10 @@ import dataclasses
 import torch
 
 from tpusplat_torch import trace
-from tpusplat_torch.compiled import compile_step
+from tpusplat_torch.compiled import compile_step, donated
 from tpusplat_torch.config import RenderConfig
 from tpusplat_torch.render import render_stages
+from tpusplat_torch.train.adam import fused_adam
 from tpusplat_torch.train.losses import gs_loss
 from tpusplat_torch.types import Camera, GaussianParams
 
@@ -62,20 +65,28 @@ class Optimizer:
     sh_lr: float = 2.5e-3
     scene_extent: float = 1.0
 
-    def learning_rate(self, name: str, count: torch.Tensor):
-        """The group's learning rate at its update count (read before the
-        count is incremented). The means follow ``optax.exponential_decay(
-        init * extent, transition_steps=max_steps, decay_rate=final/init,
-        end_value=final * extent)``; the other groups are constant."""
+    def schedule(self, name: str):
+        """(init, end, rate, steps) of the group's learning rate: constant
+        ``init`` where ``steps`` is 0, else ``optax.exponential_decay(init,
+        transition_steps=steps, decay_rate=rate, end_value=end)``. The means
+        decay from ``means_lr * extent`` to ``means_lr_final * extent``;
+        the other groups are constant."""
         if name != "means":
             return dict(log_scales=self.scales_lr, quats=self.quats_lr,
-                        opacities=self.opacities_lr, sh=self.sh_lr)[name]
+                        opacities=self.opacities_lr, sh=self.sh_lr)[name], 0.0, 1.0, 0
         init = self.means_lr * self.scene_extent
         rate = self.means_lr_final / self.means_lr
         if self.means_lr_max_steps <= 0 or rate == 0:
+            return init, 0.0, 1.0, 0
+        return init, self.means_lr_final * self.scene_extent, rate, self.means_lr_max_steps
+
+    def learning_rate(self, name: str, count: torch.Tensor):
+        """The group's learning rate at its update count (read before the
+        count is incremented), as optax computes :meth:`schedule`'s."""
+        init, end, rate, steps = self.schedule(name)
+        if steps == 0:
             return init
-        end = self.means_lr_final * self.scene_extent
-        p = count.to(torch.float32) / self.means_lr_max_steps
+        p = count.to(torch.float32) / steps
         value = torch.where(count <= 0, init, init * torch.pow(rate, p))
         return torch.clamp_min(value, end) if rate < 1.0 else torch.clamp_max(value, end)
 
@@ -166,23 +177,41 @@ def apply_gradients(state: TrainState, loss, aux: dict, grads: dict, optimizer: 
     """The Adam update and the densification statistics, gated on the
     device: a step whose render overflowed any capacity leaves every tensor
     of the state bit-identical (``step.py:114-126`` of the JAX package).
-    Returns (state, metrics); no value is read on the host."""
+    Returns (state, metrics); no value is read on the host.
+
+    The update routes by device: on the CPU :func:`adam_update` and a
+    ``torch.where`` gate a tensor; elsewhere one launch of the fused kernel
+    (:func:`tpusplat_torch.train.adam.fused_adam`), which gives the same
+    bits. The kernel writes fresh tensors, except in the body of a compiled
+    step whose state is donated (:func:`tpusplat_torch.compiled.donated`),
+    where it writes the new parameters and moments into the state's own
+    buffers; the gated count and step increments follow it."""
     trace.stage("adam", state.step.device)
     trainable, alive = split_trainable(state.params)
-    params, mu, nu, count = adam_update(optimizer, trainable, grads, state.mu, state.nu,
-                                        state.count)
     ok = (aux["capacity_overflow"] + aux["gauss_overflow"] + aux["tile_overflow"]) == 0
 
     def keep(new: dict, old: dict) -> dict:
         return {k: torch.where(ok, new[k], old[k]) for k in new}
 
+    if state.step.device.type == "cpu":
+        params, mu, nu, count = adam_update(optimizer, trainable, grads, state.mu, state.nu,
+                                            state.count)
+        params, mu, nu = keep(params, trainable), keep(mu, state.mu), keep(nu, state.nu)
+    else:
+        in_place = all(donated(t) for d in (trainable, state.mu, state.nu) for t in d.values())
+        params, mu, nu = fused_adam(
+            trainable, grads, state.mu, state.nu, state.count,
+            {k: optimizer.schedule(k) for k in TRAINABLE},
+            (aux["capacity_overflow"], aux["gauss_overflow"], aux["tile_overflow"]), B1, B2,
+            EPS, in_place=in_place)
+        count = {k: state.count[k] + 1 for k in TRAINABLE}
     gnorm = torch.linalg.vector_norm(grads["means"], dim=-1)
     visible = aux["visible"].to(torch.float32)
     radius = aux["radius"].detach()
     new_state = TrainState(
-        params=merge_trainable(keep(params, trainable), alive),
-        mu=keep(mu, state.mu),
-        nu=keep(nu, state.nu),
+        params=merge_trainable(params, alive),
+        mu=mu,
+        nu=nu,
         count=keep(count, state.count),
         step=state.step + ok.to(torch.int32),
         grad_accum=state.grad_accum + torch.where(ok, gnorm, 0.0),
@@ -205,7 +234,8 @@ def train_step(state: TrainState, camera: Camera, target: torch.Tensor, cfg: Ren
 
     Forward and backward run on the parameters' device: on the card through
     the preprocess forward and backward, emission, forward-blend,
-    backward-blend and segment-reduce kernels.
+    backward-blend and segment-reduce kernels, and the update through the
+    Adam kernel.
     The update is a no-op while any overflow counter of the render is
     nonzero; the counters come back in ``metrics`` as device tensors."""
     loss, aux, leaves = step_forward(state, camera, target, cfg, ssim_weight)
