@@ -9,7 +9,10 @@ put in the port's place). One JSON line a seed.
 
 Training cells take no window (their readings are the first steps of
 set-up); viewer cells run a short window at the cell's own load, whose
-kept frames are the ones compared. The benchmark's own runs never run this.
+kept frames are the ones compared. A cell of several cards starts its
+ranks as a run does (``ranks.py``): every rank runs each seed's set-up,
+rank 0 alone the reference, the control and the faults. The benchmark's
+own runs never run this.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from splatbench import drive, inputs, reference, run as runner
 
+CALIBRATE_TIMEOUT_S = 3600  # ranks wait while rank 0 runs the reference for every fault
 VIEW_FAULTS = ("stale", "half_batch", "altered")
 
 
@@ -53,20 +57,21 @@ def view_fault(mix, k: int, ref: dict, fault: str, dev) -> torch.Tensor:
     return img
 
 
-def one(workload: str, seed: int, seconds: float, control: bool) -> dict:
-    bench = runner.load_json(runner.ROOT / "BENCHMARK.json")
-    w = runner.cell(bench, workload)
-    conf = runner.load_json(runner.HERE / "configs" / f"{w['config']}.json")
-    traffic = runner.load_json(runner.HERE / "traffic" / f"{w['traffic']}.json")
-    dev = torch.device("cuda", torch.cuda.current_device())
+def one(workload: str, seed: int, seconds: float, control: bool, dev=None,
+        rank: int = 0) -> dict | None:
+    """One seed's readings (rank 0's; None on the other ranks)."""
+    _, w, conf, traffic, _ = runner.prepare(workload)
+    dev = torch.device("cuda", torch.cuda.current_device()) if dev is None else dev
     run = drive.Run(conf=conf, traffic=traffic, seed=seed, seconds=seconds, traced=False,
-                    device=dev)
+                    device=dev, chips=w["chips"])
     mix = drive.load_kind(traffic["kind"])(run)
     t0 = time.perf_counter()
     mix.setup()
     if traffic["kind"] == "view":
         mix.window()
     mix.free()
+    if rank:
+        return None
     t1 = time.perf_counter()
     ref = mix.check()
     out = dict(workload=workload, seed=seed, program=mix.readings(ref),
@@ -74,13 +79,23 @@ def one(workload: str, seed: int, seconds: float, control: bool) -> dict:
     if not control:
         return out
     out["control"] = mix.compare(mix.check(torch.bfloat16), ref)
-    if traffic["kind"] == "train":
+    if traffic["kind"] in ("train", "train_mesh"):
         out["faults"] = {f: mix.compare(mix.check(torch.float32, f), ref)
-                         for f in reference.FAULTS}
+                         for f in reference.faults_for(conf)}
     else:
         out["faults"] = {f: mix.compare({k: view_fault(mix, k, ref, f, dev) for k in ref}, ref)
                          for f in VIEW_FAULTS}
     return out
+
+
+def seeds(rank: int, world: int, dev, workload: str, seed_list: list, control_seeds: list,
+          seconds: float):
+    """Each seed's line, printed by rank 0 (a body for ``ranks.launch``;
+    one card: rank 0 of 1, ``dev`` None for the current device)."""
+    for seed in seed_list:
+        res = one(workload, seed, seconds, seed in control_seeds, dev, rank)
+        if res is not None:
+            print(json.dumps(res), flush=True)
 
 
 def main(argv=None) -> int:
@@ -94,9 +109,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("splatbench.calibrate: no CUDA device", file=sys.stderr)
         return 2
-    for seed in args.seeds:
-        res = one(args.workload, seed, args.seconds, seed in args.control_seeds)
-        print(json.dumps(res), flush=True)
+    chips = runner.cell(runner.load_json(runner.ROOT / "BENCHMARK.json"), args.workload)["chips"]
+    if chips > 1:
+        from splatbench import ranks
+
+        ranks.launch(seeds, chips, "cuda", (args.workload, args.seeds, args.control_seeds,
+                                           args.seconds), timeout_s=CALIBRATE_TIMEOUT_S)
+    else:
+        seeds(0, 1, None, args.workload, args.seeds, args.control_seeds, args.seconds)
     return 0
 
 

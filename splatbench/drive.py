@@ -114,6 +114,8 @@ class Run:
     work: dict = dataclasses.field(default_factory=dict)
     trace: object = None
     notes: dict = dataclasses.field(default_factory=dict)
+    chips: int = 1  # the cards the run uses, a rank each
+    ranks: list = dataclasses.field(default_factory=list)  # each rank's trace summary
 
     @property
     def pixels(self) -> int:

@@ -351,7 +351,24 @@ def adam(p: dict, g: dict, state: dict, extent: float) -> dict:
     return out
 
 
-FAULTS = ("half_batch", "altered")
+FAULTS = ("half_batch", "altered", "strip_lost", "halo_cut")
+
+
+def faults_for(conf: dict) -> tuple:
+    """The faults a configuration's step can have: the strip faults only
+    where its image is split into strips (a ``mesh`` of ``tile`` > 1)."""
+    return FAULTS if strips_of(conf) > 1 else FAULTS[:2]
+
+
+def strips_of(conf: dict) -> int:
+    return int(conf.get("mesh", {}).get("tile", 1))
+
+
+def strip_rows(conf: dict, height: int) -> int:
+    """Tile rows of one strip: the image's tile rows over the strips,
+    rounded up (the last strip may reach past the image)."""
+    tiles_y = -(-height // TILE)
+    return -(-tiles_y // strips_of(conf))
 
 
 def train_step(p: dict, cam: dict, target: torch.Tensor, conf: dict, ssim_weight: float,
@@ -360,13 +377,18 @@ def train_step(p: dict, cam: dict, target: torch.Tensor, conf: dict, ssim_weight
     :func:`render` gives them). ``fault`` plants one of ``FAULTS``, to read what
     the comparison makes of it: ``half_batch`` takes the loss over the left
     half of the image alone, ``altered`` adds 0.1 to the 64x64 pixels of
-    the image's first 4x4 tiles."""
+    the image's first 4x4 tiles; of a configuration split into strips,
+    ``strip_lost`` detaches the second strip's rows from the loss (its
+    value unchanged, its gradient lost, as a lost strip or bucket leaves
+    it) and ``halo_cut`` takes SSIM strip by strip, each zero-padded at
+    its edges (as a missing halo exchange gives)."""
     leaves = {k: p[k].detach().requires_grad_(True) for k in FIELDS}
     pr = project(dict(leaves, alive=p["alive"]), cam, conf["sh_degree"], conf["tight_radius"])
     bins = bin_tiles(pr, cam["width"], cam["height"])
     attr = pr["attr"]
     img, pairs = render(attr.detach(), bins, cam["width"], cam["height"])
     img = img.requires_grad_(True)
+    strip = strip_rows(conf, cam["height"]) * TILE
     with torch.enable_grad():
         shown, tgt = img, target
         if fault == "half_batch":
@@ -376,9 +398,18 @@ def train_step(p: dict, cam: dict, target: torch.Tensor, conf: dict, ssim_weight
             b = 4 * TILE
             shown = img + F.pad(torch.full((b, b, 3), 0.1, dtype=img.dtype, device=img.device),
                                 (0, 0, 0, img.shape[1] - b, 0, img.shape[0] - b))
-        elif fault is not None:
+        elif fault == "strip_lost":
+            shown = torch.cat([img[:strip], img[strip:2 * strip].detach(), img[2 * strip:]])
+        elif fault not in (None, "halo_cut"):
             raise ValueError(f"unknown fault {fault!r}")
-        value = loss(shown, tgt, ssim_weight)
+        if fault == "halo_cut":
+            ssim = sum(ssim_mean(img[a:a + strip], target[a:a + strip])
+                       * (min(a + strip, img.shape[0]) - a)
+                       for a in range(0, img.shape[0], strip)) / img.shape[0]
+            value = (1.0 - ssim_weight) * (img - target).abs().mean() + ssim_weight * (
+                1.0 - ssim)
+        else:
+            value = loss(shown, tgt, ssim_weight)
         (d_img,) = torch.autograd.grad(value, img)
     d_attr = render_backward(attr, bins, d_img)
     grads = torch.autograd.grad(attr, [leaves[k] for k in FIELDS], d_attr, allow_unused=True)
@@ -410,6 +441,25 @@ def instances_needed(p: dict, cams: list, conf: dict) -> int:
         return max(instance_count(project(p, camera(c, p["means"].dtype, p["means"].device),
                                           conf["sh_degree"], conf["tight_radius"]))
                    for c in cams)
+
+
+def strip_instances_needed(p: dict, cams: list, conf: dict) -> int:
+    """The largest instance count of one strip over ``cams``: each visible
+    Gaussian's tile box cut to the strip's tile rows (the capacity probe of
+    a tile-sharded step, whose instance buffers hold one strip)."""
+    rows = strip_rows(conf, cams[0]["height"])
+    best = 0
+    with torch.no_grad():
+        for c in cams:
+            pr = project(p, camera(c, p["means"].dtype, p["means"].device), conf["sh_degree"],
+                         conf["tight_radius"])
+            box = pr["box"][pr["visible"]]
+            width = box[:, 2] - box[:, 0]
+            for k in range(strips_of(conf)):
+                top = torch.clamp(box[:, 1], min=k * rows)
+                bottom = torch.clamp(box[:, 3], max=(k + 1) * rows)
+                best = max(best, int((width * (bottom - top).clamp_min(0)).sum()))
+    return best
 
 
 def norm(t: torch.Tensor) -> float:

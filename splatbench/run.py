@@ -13,7 +13,8 @@ end-to-end metrics, with ``--trace 1`` its per-layer metrics, read from a
 
 The run needs as many CUDA devices as the cell asks for, and exits nonzero
 without printing a result when they are not there, when the check cannot
-run, or when JAX or the JAX package was loaded in this process.
+run, or when JAX or the JAX package was loaded in this process. A cell of
+several cards runs as a rank a card (``ranks.py``); this process is rank 0.
 """
 
 from __future__ import annotations
@@ -88,16 +89,28 @@ def device_line(dev, n: int) -> dict:
                 memory_peak_bytes=int(torch.cuda.max_memory_allocated(dev)))
 
 
-def execute(workload: str, seed: int, seconds: float, traced: bool, device: str = "cuda",
-            bench_path: Path | None = None) -> dict:
-    """One run of a cell: set-up, the window, the check. Returns the result
-    line's object (without printing it). ``device="cpu"`` rehearses the run
-    on the plain path, for the harness's own tests."""
+def prepare(workload: str, bench_path: Path | None = None):
+    """(the benchmark, the cell, its configuration, traffic mix and limits)."""
     bench = load_json(bench_path or ROOT / "BENCHMARK.json")
     w = cell(bench, workload)
     conf = load_json(HERE / "configs" / f"{w['config']}.json")
     traffic = load_json(HERE / "traffic" / f"{w['traffic']}.json")
     limits = load_json(HERE / "limits" / f"{workload}.json")
+    return bench, w, conf, traffic, limits
+
+
+def execute(workload: str, seed: int, seconds: float, traced: bool, device: str = "cuda",
+            bench_path: Path | None = None) -> dict:
+    """One run of a cell: set-up, the window, the check. Returns the result
+    line's object (without printing it). ``device="cpu"`` rehearses the run
+    on the plain path, for the harness's own tests. A cell of several
+    chips runs as that many ranks (``ranks.py``)."""
+    bench, w, conf, traffic, limits = prepare(workload, bench_path)
+    if w["chips"] > 1:
+        from splatbench import ranks
+
+        return ranks.execute(workload, seed, seconds, traced, device, bench_path,
+                             started=PROCESS_START)
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -112,6 +125,14 @@ def execute(workload: str, seed: int, seconds: float, traced: bool, device: str 
     if bad:
         raise RuntimeError(f"modules of JAX or the JAX package were loaded: {bad}")
     dev_line = device_line(dev, w["chips"])
+    return finish(bench, workload, run, mix, limits, setup_s, dev_line)
+
+
+def finish(bench: dict, workload: str, run, mix, limits: dict, setup_s: float,
+           dev_line: dict) -> dict:
+    """After the window: free the program, check it against the reference
+    and read the metrics. Returns the result line's object."""
+    traced = run.traced
     mix.free()
     if traced:
         mix.loss_span()
@@ -139,7 +160,7 @@ def execute(workload: str, seed: int, seconds: float, traced: bool, device: str 
     if traced:
         out["breakdown"] = run.trace.breakdown()
     out["checks"] = checks
-    drive.log(workload=workload, seed=seed, window_s=run.window_s, setup_s=setup_s,
+    drive.log(workload=workload, seed=run.seed, window_s=run.window_s, setup_s=setup_s,
               **run.notes)
     return out
 

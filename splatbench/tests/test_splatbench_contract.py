@@ -34,8 +34,10 @@ def test_keys_and_names():
         assert UNIT.match(m["unit"]), m
         assert m["better"] in ("lower", "higher")
     for w in BENCH["workloads"]:
-        assert NAME.match(w["config"]) and NAME.match(w["traffic"]) and w["chips"] == 1
+        assert NAME.match(w["config"]) and NAME.match(w["traffic"]) and w["chips"] in (1, 4)
         assert 1 <= len(w["why"]) <= 200
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4), four
 
 
 def test_bounds_and_sources():
@@ -49,10 +51,11 @@ def test_bounds_and_sources():
 
 
 def test_per_layer_workloads_report_what_they_move():
-    """Each per-layer metric lists exactly the cells that report the
-    end-to-end metric it moves, and a reader of its own exists."""
+    """Each per-layer metric lists some of the cells that report the
+    end-to-end metric it moves (those in which its reader finds something to
+    read), and a reader of its own exists."""
     for m in BENCH["per_layer"]:
-        assert set(m["workloads"]) == cells_reporting(m["moves"]), m["name"]
+        assert m["workloads"] and set(m["workloads"]) <= cells_reporting(m["moves"]), m["name"]
         assert os.path.exists(os.path.join(HERE, "metrics", m["name"] + ".py"))
         if "roofline" in m["name"] or "mfu" in m["name"]:
             assert m["unit"] == "%"

@@ -89,6 +89,6 @@ def test_roofline_reads_100_at_the_bound():
 
 
 def test_readers_are_silent_without_their_source():
-    run = types.SimpleNamespace(trace=None, work={}, pixels=1, spans={})
+    run = types.SimpleNamespace(trace=None, work={}, pixels=1, spans={}, ranks=[], chips=1)
     for name in os.listdir(os.path.join(HERE, "metrics")):
         assert _reader(name[:-3])(run) is None, name

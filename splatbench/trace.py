@@ -27,6 +27,7 @@ import sys
 import time
 
 TOP = 10
+COLLECTIVE = "nccl"  # in the name of every NCCL kernel (lower case)
 MARKER = "spin_kernel"  # torch.cuda._sleep's kernel
 # Host time left between the profiler's start or stop and a marker: the
 # tracer drops device records that it dates outside its own window.
@@ -58,6 +59,13 @@ class Trace:
         """(seconds, launches) of the kernels whose name holds ``symbol``."""
         hits = [e - s for name, s, e in self.device if symbol in name]
         return sum(hits), len(hits)
+
+    def summary(self) -> dict:
+        """What one rank of a run of several cards sends rank 0: the units
+        traced and the busy time of its work apart from the collectives
+        (NCCL's kernels, which include the time a rank waits for its peers)."""
+        own = [(s, e) for name, s, e in self.device if COLLECTIVE not in name.lower()]
+        return dict(units=self.units, compute_busy_s=merged(own, 0.0, self.window_s))
 
     def breakdown(self) -> dict:
         by_name: dict = {}
