@@ -75,6 +75,17 @@ Phases, one output line each; any failure exits non-zero:
      dead) beside its byte bound (28 B a parameter), the
      plain route's ms and ``torch.optim.Adam(fused=True)``'s step as
      ``library_ms`` (alone: as 4a, with ``cs.phase_adam(torch, d)``);
+ 4e. surfel (2D Gaussian Splatting; alone: as 4a, with
+     ``cs.phase_surfel(torch, d)``): the four surfel kernels
+     (``csrc/preprocess2d.cu``, ``rasterize2d_forward.cu``,
+     ``rasterize2d_backward.cu``) against their plain versions at 30k/640x480
+     and at garden shapes (the backward blend on tile rows 32-35): gaps
+     normalised by each row's largest, fail above 1e-3 (preprocess) or 1e-2
+     (blends); the 18-row segment reduce against ``index_add_`` and the
+     9-row path bit-equal to its summation order; the whole CUDA step
+     against ``surfel_reference`` at 2k/128x96; an eager garden step's
+     launches (one each) and three compiled steps against three eager ones;
+     each kernel's ms at garden shapes;
  4b. trace: the tracer's stamp kernel (``csrc/stamp.cu``) at the parity
      shapes: ``%globaltimer`` read by 4000 eager and 2000 captured stamps
      (steps, share of zero steps, monotonic), the anchor's spread over
@@ -1838,19 +1849,26 @@ KERNEL_SYMBOLS = dict(emission="emit_kernel", forward_blend="forward_kernel",
                       segment_reduce_multirange="multirange_kernel",
                       preprocess="preprocess_kernel",
                       preprocess_bwd="preprocess_backward_kernel", adam="adam_kernel")
+# The surfel step's kernels (2D Gaussian Splatting), beside the 3DGS blend
+# and preprocess kernels it must not run and the Adam kernel it shares.
+SURFEL_KERNEL_SYMBOLS = dict(preprocess2d="preprocess2d_kernel",
+                             preprocess2d_bwd="preprocess2d_backward_kernel",
+                             forward2d="forward2d_kernel", backward2d="backward2d_kernel",
+                             forward_blend="forward_kernel", backward_blend="backward_kernel",
+                             preprocess="preprocess_kernel", adam="adam_kernel")
 PORT_KERNEL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+)(?:<[^(]*>)?\(")
 
 
-def traced_launches(fn):
+def traced_launches(fn, symbols=KERNEL_SYMBOLS):
     """``fn()`` in a ``torch.profiler`` window: its result and, for each
-    port kernel, the launches the device ran in the window, counted by name
-    in the trace. A graph replay runs no wrapper, so the wrappers' counters
-    do not see it; the trace does. Fails if the window recorded no device
-    activity at all."""
+    port kernel of ``symbols``, the launches the device ran in the window,
+    counted by name in the trace. A graph replay runs no wrapper, so the
+    wrappers' counters do not see it; the trace does. Fails if the window
+    recorded no device activity at all."""
     window = profiled(fn, "cuda")
     if not window.ops:
         fail("traced_launches: the profiler recorded no device activity")
-    return window.out, port_launches(window.counts())
+    return window.out, port_launches(window.counts(), symbols)
 
 
 def port_kernel(name: str):
@@ -1859,12 +1877,12 @@ def port_kernel(name: str):
     return m.group(1) if m else None
 
 
-def port_launches(names: dict) -> dict:
+def port_launches(names: dict, symbols=KERNEL_SYMBOLS) -> dict:
     """Each port kernel's launches among device operations counted by name."""
     seen = collections.Counter()
     for name, count in names.items():
         seen[port_kernel(name)] += count
-    return {k: seen[sym] for k, sym in KERNEL_SYMBOLS.items()}
+    return {k: seen[sym] for k, sym in symbols.items()}
 
 
 def allocator(torch) -> dict:
@@ -3614,6 +3632,297 @@ def phase_headline(torch, dev):
     return out
 
 
+# The surfel phase (2D Gaussian Splatting): its parity scene (scales large
+# enough that disks cover many pixels), the garden tile rows the plain
+# backward blend is held on, and the end-to-end check's small scene.
+SURFEL_PARITY = dict(n=30_000, width=640, height=480, scale_range=(0.01, 0.1))
+SURFEL_BWD_ROWS = (32, 36)
+SURFEL_SMALL = dict(n=2_000, width=128, height=96)
+
+
+def surfel_scene(torch, dev, n, width, height, seed, scale_range=(0.002, 0.02)):
+    """(surfels, the 3-camera garden orbit, cfg) of a random scene."""
+    from tpusplat_torch import RenderConfig, look_at_camera, random_scene
+    from tpusplat_torch.types import SurfelParams
+
+    params = SurfelParams.from_gaussians(random_scene(n, seed=seed, sh_degree=3,
+                                                      scale_range=scale_range, extent=4.0,
+                                                      device=dev))
+    cams = orbit_cameras(look_at_camera, [0.0, 0.5, 9.0], [0.0, 0.0, 0.0], width, height,
+                         60.0, 3, dev)
+    return params, cams, RenderConfig(sh_degree=3, max_per_tile=4096, tight_radius=True)
+
+
+def rows_gap(torch, got, want) -> list:
+    """Each row's largest difference over the row's largest magnitude."""
+    return [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            for g, w in zip(got, want)]
+
+
+def surfel_slab(torch, sf, params, cam, cfg):
+    """(the kernel's preprocess, cfg with its capacity, binned, slab, tiles_x)."""
+    from tpusplat_torch.ops.binning import bin_and_sort
+
+    with torch.no_grad():
+        ps = sf.preprocess2d_cuda(params, cam, cfg)
+        cfg = dataclasses.replace(cfg, capacity=int(int(ps.ntiles.sum()) * 1.05) + 1024)
+        binned = bin_and_sort(ps, cam.width, cam.height, cfg)
+        gid = torch.clamp_max(binned.gauss_id, params.num_gaussians - 1).long()
+        attr = ps.table.index_select(1, gid).contiguous()
+    return ps, cfg, binned, attr, cfg.tile_grid(cam.width, cam.height)[0]
+
+
+def check_surfel_kernels(torch, dev, params, cam, cfg, label, bwd_rows=None) -> dict:
+    """The four surfel kernels against their plain versions on one camera:
+    preprocess (table rows, culls, tile counts), its backward against
+    autograd of the plain preprocess, the forward blend on the whole frame
+    and the backward blend (on ``bwd_rows`` tile rows, else the frame) on
+    seeded cotangents; gaps normalised by each row's largest magnitude."""
+    from tpusplat_torch.ops import surfel as sf
+
+    n = params.num_gaussians
+    ps, cfg, binned, attr, tiles_x = surfel_slab(torch, sf, params, cam, cfg)
+    out = dict(label=label, n=n, instances=int(binned.num_instances),
+               overflow=int(binned.overflow))
+    with torch.no_grad():
+        pp = sf.preprocess2d_plain(params, cam, cfg)
+    vis = pp.ntiles > 0
+    out["preprocess_visible_mismatch"] = int(((ps.ntiles > 0) != vis).sum())
+    out["preprocess_ntiles_mismatch"] = int((ps.ntiles != pp.ntiles).sum())
+    out["preprocess_table_gap"] = max(rows_gap(torch, ps.table[:, vis], pp.table[:, vis]))
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    d_table = torch.randn((sf.ATTR_ROWS, n), generator=g, device=dev)
+    grads = sf.preprocess2d_backward_cuda(params, cam, cfg, d_table)
+    leaves = {k: getattr(params, k).detach().requires_grad_(True) for k in sf.GRAD_FIELDS}
+    with torch.enable_grad():
+        table = sf.preprocess2d_plain(dataclasses.replace(params, **leaves), cam, cfg).table
+        want = torch.autograd.grad(table, [leaves[k] for k in sf.GRAD_FIELDS], d_table)
+    out["preprocess_bwd_gap"] = {k: max(rows_gap(torch, grads[k].reshape(n, -1).T,
+                                                 w.reshape(n, -1).T))
+                                 for k, w in zip(sf.GRAD_FIELDS, want)}
+    starts, ends = binned.tile_start, binned.tile_end
+    intr = sf.ray_intrinsics(cam)
+    with torch.no_grad():
+        mk = sf.forward2d_cuda(attr, starts, ends, intr, tiles_x, 0, cam.width, cam.height, cfg)
+        mp = sf.blend2d_plain(attr, starts, ends, intr, tiles_x, 0, cam.width, cam.height, cfg)
+    out["forward_maps_gap"] = rows_gap(torch, mk[0].reshape(-1, sf.MAPS).T,
+                                       mp[0].reshape(-1, sf.MAPS).T)
+    out["forward_tmap_gap"] = float((mk[1] - mp[1]).abs().max())
+    r0, r1 = bwd_rows or (0, -(-cam.height // cfg.tile_h))
+    a, b = r0 * tiles_x, r1 * tiles_x
+    crop = min(cam.height, r1 * cfg.tile_h) - r0 * cfg.tile_h
+    win = [t[r0 * cfg.tile_h:r0 * cfg.tile_h + crop].contiguous() for t in mk[:3]]
+    d_maps = torch.randn(win[0].shape, generator=g, device=dev)
+    d_tmap = torch.randn(win[1].shape, generator=g, device=dev)
+    d_k = sf.backward2d_cuda(attr, starts[a:b].contiguous(), ends[a:b].contiguous(), intr,
+                             *win, d_maps, d_tmap, tiles_x, r0, cam.width, crop, cfg)
+    d_p = sf.backward2d_plain(attr, starts[a:b].contiguous(), ends[a:b].contiguous(), intr,
+                              d_maps, d_tmap, tiles_x, r0, cam.width, crop, cfg)
+    lo, hi = int(starts[a]), int(ends[b - 1])
+    out["backward_rows"] = [r0, r1]
+    out["backward_instances"] = hi - lo
+    out["backward_gap"] = rows_gap(torch, d_k[:, lo:hi], d_p[:, lo:hi])
+    d_k2 = sf.backward2d_cuda(attr, starts[a:b].contiguous(), ends[a:b].contiguous(), intr,
+                              *win, d_maps, d_tmap, tiles_x, r0, cam.width, crop, cfg)
+    out["backward_repeat_equal"] = bool((d_k[:, lo:hi] == d_k2[:, lo:hi]).all())
+    return out
+
+
+def segment_reduce_rows_check(torch, dev, n, instances, seed) -> dict:
+    """The dense segment reduce on 18 rows against ``index_add_``, and on 9
+    rows bit-equal to the order it has always summed in (rows left to
+    right, two a step: ``(acc + a) + b``), emulated elementwise for runs of
+    at most 32 rows."""
+    from tpusplat_torch.ops import segment_reduce as sr
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    gid = torch.sort(torch.randint(0, n + 1, (instances,), generator=g, device=dev,
+                                   dtype=torch.int32)).values
+    bounds = torch.searchsorted(gid, torch.arange(n + 1, device=dev, dtype=torch.int32),
+                                out_int32=True)
+    rows18 = torch.randn((18, instances), generator=g, device=dev)
+    got18 = sr.segment_reduce(rows18, gid, bounds)
+    want18 = sr.segment_reduce_plain(rows18, gid, bounds)
+    rows9 = rows18[:9].contiguous()
+    got9 = sr.segment_reduce(rows9, gid, bounds)
+    lo, hi = bounds[:-1].long(), bounds[1:].long()
+    longest = int((hi - lo).max())
+    acc = torch.zeros((9, n), device=dev)
+    r = lo.clone()
+    for _ in range(0, longest, 2):
+        two = r + 1 < hi
+        a = rows9[:, r.clamp_max(instances - 1)]
+        b = rows9[:, (r + 1).clamp_max(instances - 1)]
+        acc = torch.where(two[None], (acc + a) + b, acc)
+        r = torch.where(two, r + 2, r)
+    last = r < hi
+    acc = torch.where(last[None], acc + rows9[:, r.clamp_max(instances - 1)], acc)
+    return dict(n=n, instances=instances, longest_run=longest,
+                rows18_gap=max(rows_gap(torch, got18, want18)),
+                rows9_bit_equal=bool((got9 == acc).all()) if longest <= 32 else None,
+                rows9_equal_rows18=bool((got9 == got18[:9]).all()))
+
+
+def surfel_reference_check(torch, dev) -> dict:
+    """The whole CUDA surfel step's loss and gradients against
+    ``surfel_reference`` (plain PyTorch, every surfel against every pixel)
+    on the card at a small size."""
+    from tpusplat_torch import surfel_reference as ref
+    from tpusplat_torch.train.step import create_train_state, step_backward, step_forward
+
+    c = SURFEL_SMALL
+    params, cams, cfg = surfel_scene(torch, dev, c["n"], c["width"], c["height"], 11,
+                                     scale_range=(0.02, 0.2))
+    cfg = dataclasses.replace(cfg, capacity_mult=64)
+    cam = cams[1]
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    target = torch.rand((c["height"], c["width"], 3), generator=g, device=dev)
+    loss, aux, leaves = step_forward(create_train_state(params), cam, target, cfg)
+    grads = step_backward(loss, leaves)
+    camd = dict(view=cam.view, cam_pos=cam.cam_pos, tan_fovx=float(cam.tan_fovx),
+                tan_fovy=float(cam.tan_fovy), width=cam.width, height=cam.height)
+    p = {k: getattr(params, k) for k in (*ref.FIELDS, "alive")}
+    with ref.full_fp32():
+        want_loss, want = ref.loss_and_grads(p, camd, target)
+    return dict(overflow=int(aux["capacity_overflow"]),
+                loss_gap=abs(float(loss.detach()) - want_loss) / abs(want_loss),
+                grad_gap={k: float((grads[k] - want[k]).norm() / want[k].norm().clamp_min(1e-30))
+                          for k in ref.FIELDS})
+
+
+def phase_surfel(torch, dev):
+    """2D Gaussian Splatting on the card: the four surfel kernels against
+    their plain versions at the parity size and at garden shapes (the
+    backward blend on garden's tile rows ``SURFEL_BWD_ROWS``), the 18-row
+    segment reduce and the 9-row path's bits, the whole step against
+    ``surfel_reference``, an eager garden step's launches (each wrapper's
+    counter from 0), three compiled steps against three eager ones, each
+    compiled call in a profiler window (the replays after the capture run
+    each surfel kernel and the Adam kernel once by name, no 3DGS blend or
+    preprocess kernel and no wrapper), a CUDA camera that requires grad
+    refused, and each kernel's ms at garden shapes (alone: as 4a, with
+    ``cs.phase_surfel(torch, d)``)."""
+    from tpusplat_torch.ops import surfel as sf
+    from tpusplat_torch.train.step import (compile_train_step, create_train_state,
+                                           make_optimizer, train_step)
+
+    c = SURFEL_PARITY
+    params, cams, cfg = surfel_scene(torch, dev, c["n"], c["width"], c["height"], 0,
+                                     c["scale_range"])
+    parity = check_surfel_kernels(torch, dev, params, cams[0], cfg, "parity")
+    log(phase="surfel_parity", **parity)
+    params, cams, cfg = surfel_scene(torch, dev, GARDEN["n"], GARDEN["width"], GARDEN["height"],
+                                     0)
+    garden = check_surfel_kernels(torch, dev, params, cams[0], cfg, "garden", SURFEL_BWD_ROWS)
+    log(phase="surfel_garden", **garden)
+    seg = [segment_reduce_rows_check(torch, dev, n, inst, 5)
+           for n, inst in ((GARDEN["n"], 4_200_000), (6_000_000, 12_000_000))]
+    log(phase="surfel_segment_reduce", checks=seg)
+    e2e = surfel_reference_check(torch, dev)
+    log(phase="surfel_reference", **e2e)
+    cam_grad = dataclasses.replace(cams[0], view=cams[0].view.clone().requires_grad_(True))
+    try:
+        with torch.enable_grad():
+            sf.preprocess2d(params, cam_grad, cfg)
+        camera_grad_refused = False
+    except ValueError:
+        camera_grad_refused = True
+
+    # An eager garden step's launches, then three compiled steps against
+    # three eager ones from one state.
+    ps, cfg, binned, attr, tiles_x = surfel_slab(torch, sf, params, cams[0], cfg)
+    starts, ends = binned.tile_start, binned.tile_end
+    cfg = dataclasses.replace(cfg, capacity=int(cfg.capacity * 1.3))
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    target = torch.rand((GARDEN["height"], GARDEN["width"], 3), generator=g, device=dev)
+    opt = make_optimizer(scene_extent=4.0)
+    names = ("LAUNCHES", "BACKWARD_LAUNCHES", "FORWARD2D_LAUNCHES", "BACKWARD2D_LAUNCHES")
+
+    def reset():
+        for k in names:
+            setattr(sf, k, 0)
+
+    reset()
+    state, m = train_step(create_train_state(params), cams[0], target, cfg, opt)
+    launches = {k: getattr(sf, k) for k in names}
+    eager = create_train_state(params)
+    step = compile_train_step()
+    comp = create_train_state(params)
+    losses, replayed, moved = [], [], []
+    for i in range(3):
+        eager, me = train_step(eager, cams[i], target, cfg, opt)
+        reset()
+        (comp, mc), traced = traced_launches(
+            lambda i=i: step(comp, cams[i], target, cfg, opt), SURFEL_KERNEL_SYMBOLS)
+        replayed.append(traced)
+        moved.append({k: getattr(sf, k) for k in names})
+        losses.append((float(me["loss"]), float(mc["loss"])))
+    # The first call captures (its warm-ups run the wrappers); every call
+    # replays. The calls after it run the graph alone: each surfel kernel
+    # and the Adam kernel once by name, no 3DGS blend or preprocess kernel,
+    # and no wrapper.
+    one = {k: 1 for k in ("preprocess2d", "preprocess2d_bwd", "forward2d", "backward2d",
+                          "adam")}
+    none = {k: 0 for k in ("forward_blend", "backward_blend", "preprocess")}
+    replay_ok = step.stats["captures"] == 1 and step.stats["replays"] == 3 and all(
+        t == {**one, **none} and not any(w.values())
+        for t, w in zip(replayed[1:], moved[1:]))
+    state_gap = {k: float((getattr(comp.params, k) - getattr(eager.params, k)).abs().max())
+                 for k in sf.GRAD_FIELDS}
+    stats = dict(step.stats)
+    del state, eager, comp, step
+    torch.cuda.empty_cache()
+
+    # Each kernel's ms at garden shapes, the first camera.
+    intr = sf.ray_intrinsics(cams[0])
+    with torch.no_grad():
+        maps, tmap, msum, _ = sf.forward2d_cuda(attr, starts, ends, intr, tiles_x, 0,
+                                                GARDEN["width"], GARDEN["height"], cfg)
+    d_maps, d_tmap = torch.randn_like(maps), torch.randn_like(tmap)
+    d_table = torch.randn((sf.ATTR_ROWS, params.num_gaussians), device=dev)
+    ms = dict(
+        preprocess2d=time_ms(lambda: sf.preprocess2d_cuda(params, cams[0], cfg), dev)[0],
+        preprocess2d_backward=time_ms(
+            lambda: sf.preprocess2d_backward_cuda(params, cams[0], cfg, d_table), dev)[0],
+        forward2d=time_ms(lambda: sf.forward2d_cuda(attr, starts, ends, intr, tiles_x, 0,
+                                                    GARDEN["width"], GARDEN["height"], cfg),
+                          dev)[0],
+        backward2d=time_ms(lambda: sf.backward2d_cuda(attr, starts, ends, intr, maps, tmap, msum,
+                                                      d_maps, d_tmap, tiles_x, 0,
+                                                      GARDEN["width"], GARDEN["height"], cfg),
+                           dev)[0])
+    log(phase="surfel_garden_step", launches=launches, replayed_traced=replayed,
+        replayed_wrapper_calls=moved, stats=stats, camera_grad_refused=camera_grad_refused,
+        losses=losses, state_gap=state_gap,
+        overflow=int(m["capacity_overflow"]), instances=int(attr.shape[1]), ms=ms,
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    problems = []
+    for res in (parity, garden):
+        if res["overflow"] or res["preprocess_table_gap"] > 1e-3 or \
+                max(res["forward_maps_gap"]) > 1e-2 or max(res["backward_gap"]) > 1e-2 or \
+                max(res["preprocess_bwd_gap"].values()) > 1e-3:
+            problems.append(res["label"])
+    if any(v != 1 for v in launches.values()):
+        problems.append(f"launches {launches}")
+    if not camera_grad_refused:
+        problems.append("a camera that requires grad was not refused")
+    if not replay_ok:
+        problems.append(f"replays {stats} {replayed[1:]} {moved[1:]}")
+    if any(state_gap.values()) or any(a != b for a, b in losses):
+        problems.append(f"compiled steps not bit-equal to eager: {state_gap} {losses}")
+    if e2e["loss_gap"] > 1e-4 or max(e2e["grad_gap"].values()) > 1e-3:
+        problems.append(f"reference {e2e}")
+    if any(s["rows18_gap"] > 1e-5 or s["rows9_bit_equal"] is False
+           or not s["rows9_equal_rows18"] for s in seg):
+        problems.append(f"segment reduce {seg}")
+    if problems:
+        fail(f"surfel: {problems}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3702,6 +4011,7 @@ def run(torch, dev, kind: str, smi: str) -> int:
     phase_preprocess_bwd(torch, dev)
     phase_adam(torch, dev)
     phase_trace(torch, dev)
+    phase_surfel(torch, dev)
 
     params, cams, cfg = garden_inputs(torch, dev)
     with torch.no_grad():

@@ -15,7 +15,9 @@
 //
 // Rows [9, stride] float32 hold one gradient row per instance slot (uv.x,
 // uv.y, conic a, b, c, opacity, r, g, b); out [9, m] float32 is the layout
-// of the gathered table. A row whose id lies outside [0, n) -- the sentinel
+// of the gathered table. The dense mode also sums the surfels' 18 rows
+// (tpusplat_segment_reduce_rows): the same kernel, templated on the row
+// count, so its 9-row instance is the code it was. A row whose id lies outside [0, n) -- the sentinel
 // slots past the last instance, whose values are stale memory the backward
 // blend never wrote -- lies in no run and is never read, even as NaN.
 //
@@ -90,32 +92,34 @@
 namespace {
 
 constexpr int kRows = 9;
+constexpr int kSurfelRows = 18;  // the surfels' slab (ops/surfel.py)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 // A run longer than this many rows is summed by its whole warp. Garden's
 // runs average 3 rows and reach 16, so none of them takes the warp path.
 constexpr int kLongRun = 32;
 
-// Adds the 9 rows of run [lo, hi) to acc: a lane alone for a short run; for
+// Adds the R rows of run [lo, hi) to acc: a lane alone for a short run; for
 // the warp's long runs the whole warp afterwards, in lane order.
+template <int R = kRows>
 __device__ __forceinline__ void add_run(const float* __restrict__ rows, long long stride,
-                                        int lo, int hi, int lane, float (&acc)[kRows]) {
+                                        int lo, int hi, int lane, float (&acc)[R]) {
   const bool is_long = hi - lo > kLongRun;
   if (!is_long) {
     int r = lo;
     for (; r + 1 < hi; r += 2) {  // two rows a step: 18 loads in flight
-      float a[kRows], b[kRows];
+      float a[R], b[R];
 #pragma unroll
-      for (int k = 0; k < kRows; ++k) {
+      for (int k = 0; k < R; ++k) {
         a[k] = rows[k * stride + r];
         b[k] = rows[k * stride + r + 1];
       }
 #pragma unroll
-      for (int k = 0; k < kRows; ++k) acc[k] = (acc[k] + a[k]) + b[k];
+      for (int k = 0; k < R; ++k) acc[k] = (acc[k] + a[k]) + b[k];
     }
     if (r < hi) {
 #pragma unroll
-      for (int k = 0; k < kRows; ++k) acc[k] += rows[k * stride + r];
+      for (int k = 0; k < R; ++k) acc[k] += rows[k * stride + r];
     }
   }
 
@@ -126,25 +130,27 @@ __device__ __forceinline__ void add_run(const float* __restrict__ rows, long lon
     pending &= pending - 1;
     const int a_lo = __shfl_sync(kFull, lo, src);
     const int a_hi = __shfl_sync(kFull, hi, src);
-    float s[kRows];
+    float s[R];
 #pragma unroll
-    for (int k = 0; k < kRows; ++k) s[k] = 0.0f;
+    for (int k = 0; k < R; ++k) s[k] = 0.0f;
     for (int r = a_lo + lane; r < a_hi; r += 32) {
 #pragma unroll
-      for (int k = 0; k < kRows; ++k) s[k] += rows[k * stride + r];
+      for (int k = 0; k < R; ++k) s[k] += rows[k * stride + r];
     }
 #pragma unroll
-    for (int k = 0; k < kRows; ++k) {
+    for (int k = 0; k < R; ++k) {
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) s[k] += __shfl_xor_sync(kFull, s[k], o);
     }
     if (lane == src) {
 #pragma unroll
-      for (int k = 0; k < kRows; ++k) acc[k] += s[k];
+      for (int k = 0; k < R; ++k) acc[k] += s[k];
     }
   }
 }
 
+// Dense mode over R rows: 9 for the Gaussians' slab, 18 for the surfels'.
+template <int R>
 __global__ void segment_reduce_kernel(const float* __restrict__ rows, long long stride,
                                       const int* __restrict__ lo, const int* __restrict__ hi,
                                       int rps, int m, float* __restrict__ out) {
@@ -154,17 +160,17 @@ __global__ void segment_reduce_kernel(const float* __restrict__ rows, long long 
   const bool own = jl < m;
   const int j = static_cast<int>(own ? jl : 0);
 
-  float acc[kRows];
+  float acc[R];
 #pragma unroll
-  for (int k = 0; k < kRows; ++k) acc[k] = 0.0f;
+  for (int k = 0; k < R; ++k) acc[k] = 0.0f;
   for (int b = 0; b < rps; ++b) {  // rps is the same for the whole warp
     const long long at = static_cast<long long>(b) * m + j;
-    add_run(rows, stride, own ? lo[at] : 0, own ? hi[at] : 0, lane, acc);
+    add_run<R>(rows, stride, own ? lo[at] : 0, own ? hi[at] : 0, lane, acc);
   }
 
   if (own) {
 #pragma unroll
-    for (int k = 0; k < kRows; ++k) out[static_cast<long long>(k) * m + j] = acc[k];
+    for (int k = 0; k < R; ++k) out[static_cast<long long>(k) * m + j] = acc[k];
   }
 }
 
@@ -303,9 +309,31 @@ __global__ void multirange_kernel(const float* __restrict__ rows, long long stri
 // cudaGetLastError() after the launch (0 on success). m >= 1.
 extern "C" int tpusplat_segment_reduce(const void* rows, long long stride, const void* lo,
                                        const void* hi, int rps, int m, void* out, void* stream) {
-  segment_reduce_kernel<<<blocks_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  segment_reduce_kernel<kRows><<<blocks_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rows), stride, static_cast<const int*>(lo),
       static_cast<const int*>(hi), rps, m, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dense mode over nrows rows [nrows, stride] into out [nrows, m]: 9
+// (the call above) or 18, the surfels' slab. Returns cudaErrorInvalidValue
+// for another count.
+extern "C" int tpusplat_segment_reduce_rows(const void* rows, long long stride, const void* lo,
+                                            const void* hi, int rps, int m, int nrows,
+                                            void* out, void* stream) {
+  const auto* r = static_cast<const float*>(rows);
+  const auto* l = static_cast<const int*>(lo);
+  const auto* h = static_cast<const int*>(hi);
+  auto* o = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (nrows == kRows) {
+    segment_reduce_kernel<kRows><<<blocks_for(m), kThreads, 0, s>>>(r, stride, l, h, rps, m, o);
+  } else if (nrows == kSurfelRows) {
+    segment_reduce_kernel<kSurfelRows><<<blocks_for(m), kThreads, 0, s>>>(r, stride, l, h, rps,
+                                                                         m, o);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -59,6 +59,8 @@ TPUSPLAT_STAMP(adam, 6)
 TPUSPLAT_STAMP(writeback, 7)
 TPUSPLAT_STAMP(end, 8)
 TPUSPLAT_STAMP(densify, 9)
+TPUSPLAT_STAMP(regularize, 10)
+TPUSPLAT_STAMP(regularize_bwd, 11)
 #undef TPUSPLAT_STAMP
 
 extern "C" __global__ void tpusplat_anchor() { g_anchor = globaltimer(); }
@@ -70,7 +72,7 @@ const StampKernel kStamps[] = {
     tpusplat_stamp_preprocess, tpusplat_stamp_binning,        tpusplat_stamp_blend,
     tpusplat_stamp_loss,       tpusplat_stamp_blend_bwd,      tpusplat_stamp_preprocess_bwd,
     tpusplat_stamp_adam,       tpusplat_stamp_writeback,      tpusplat_stamp_end,
-    tpusplat_stamp_densify,
+    tpusplat_stamp_densify,    tpusplat_stamp_regularize,     tpusplat_stamp_regularize_bwd,
 };
 constexpr int kStages = sizeof(kStamps) / sizeof(kStamps[0]);
 

@@ -103,7 +103,9 @@ def load_ply(path: str | os.PathLike, device="cuda", use_native: bool = True) ->
 
 def save_ply(path: str | os.PathLike, params: GaussianParams, only_alive: bool = True) -> None:
     """Write raw GaussianParams in the standard 3DGS .ply layout (normals as
-    zeros, ``src/GSScene.cpp:56-58``)."""
+    zeros, ``src/GSScene.cpp:56-58``). A surfel scene (``SurfelParams``,
+    two scales) is written in 2D Gaussian Splatting's layout, the same
+    without ``scale_2``."""
 
     def arr(t, dtype=np.float32):
         return t.detach().cpu().numpy().astype(dtype)
@@ -120,13 +122,17 @@ def save_ply(path: str | os.PathLike, params: GaussianParams, only_alive: bool =
     rec[:, 6:9] = sh[:, 0, :]
     rec[:, 9:54] = np.moveaxis(sh[:, 1:, :], 2, 1).reshape(n, 45)
     rec[:, 54] = opac
-    rec[:, 55:58] = scales
+    rec[:, 55:55 + scales.shape[1]] = scales
     rec[:, 58:62] = quats
+    props = list(_PROPS)
+    if scales.shape[1] == 2:
+        del props[57]
+        rec = np.delete(rec, 57, axis=1)
 
     header = _io.BytesIO()
     header.write(b"ply\nformat binary_little_endian 1.0\n")
     header.write(f"element vertex {n}\n".encode())
-    for name in _PROPS:
+    for name in props:
         header.write(f"property float {name}\n".encode())
     header.write(b"end_header\n")
     with open(path, "wb") as f:

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpusplat_torch"
 KERNELS = ("emission", "rasterize_forward", "rasterize_backward", "segment_reduce", "stamp",
-           "preprocess", "adam")
+           "preprocess", "adam", "preprocess2d", "rasterize2d_forward", "rasterize2d_backward")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC",

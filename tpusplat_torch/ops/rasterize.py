@@ -70,8 +70,9 @@ def pack_instances(pg: ProcessedGaussians, binned: BinnedInstances) -> torch.Ten
 
 
 class _PackGather(torch.autograd.Function):
-    """attr [9, C] = table [9, N] at the clamped gid; the backward reduces
-    by the raw gid (``_pack_gather`` of rasterize_pallas.py)."""
+    """attr [K, C] = table [K, N] at the clamped gid; the backward reduces
+    by the raw gid (``_pack_gather`` of rasterize_pallas.py). K is 9, or 18
+    for the surfels' table (``ops/surfel.py``)."""
 
     @staticmethod
     def forward(ctx, table, gauss_id):
@@ -87,8 +88,8 @@ class _PackGather(torch.autograd.Function):
 
 
 def sort_grad_rows(rows: torch.Tensor, gauss_id: torch.Tensor, n: int):
-    """Re-sort the gradient rows [9, C] by the raw gid (stable): returns
-    (rows [9, C], sorted gid [C], bounds [N + 1]), where
+    """Re-sort the gradient rows [K, C] by the raw gid (stable): returns
+    (rows [K, C], sorted gid [C], bounds [N + 1]), where
     ``[bounds[g], bounds[g+1])`` is Gaussian g's run -- the inputs of the
     segment reduce (``_sort_grad_rows`` of rasterize_pallas.py)."""
     gid_s, perm = torch.sort(gauss_id, stable=True)
@@ -98,7 +99,7 @@ def sort_grad_rows(rows: torch.Tensor, gauss_id: torch.Tensor, n: int):
 
 
 def gather_grad(d_attr: torch.Tensor, gauss_id: torch.Tensor, n: int) -> torch.Tensor:
-    """The transpose of the gather: d_attr [9, C] -> d_table [9, N].
+    """The transpose of the gather: d_attr [K, C] -> d_table [K, N].
 
     A segment reduction keyed on the raw gid, never autograd's
     ``index_select`` backward on the clamped gid, which would add every dead

@@ -37,6 +37,9 @@ LAUNCHES = 0
 TARGETS_LAUNCHES = 0
 MULTIRANGE_LAUNCHES = 0
 ROWS = 9  # gradient rows the kernel sums (uv.x, uv.y, conic a/b/c, opacity, r/g/b)
+# Row counts the dense mode takes: the Gaussians' 9 and the surfels' 18
+# (ops/surfel.py); the other two modes take ROWS.
+DENSE_ROWS = (ROWS, 18)
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -45,6 +48,11 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def _kernel():
     return _build.function("segment_reduce", "tpusplat_segment_reduce",
                            [_P, _LL, _P, _P, _I, _I, _P, _P])
+
+
+def _rows_kernel():
+    return _build.function("segment_reduce", "tpusplat_segment_reduce_rows",
+                           [_P, _LL, _P, _P, _I, _I, _I, _P, _P])
 
 
 def segment_reduce_plain(rows: torch.Tensor, gid: torch.Tensor, bounds: torch.Tensor):
@@ -65,7 +73,8 @@ def _index_add(rows, ids, n: int):
 
 def segment_reduce(rows: torch.Tensor, gid: torch.Tensor, bounds: torch.Tensor):
     """Sum the gradient rows [K, R] (float32) of each id into ``d_table``
-    [K, N] (float32, the layout of the gathered table).
+    [K, N] (float32, the layout of the gathered table). On the card K is
+    one of ``DENSE_ROWS``.
 
     ``gid`` [R] int32 must be sorted ascending and ``bounds`` [N + 1] int32
     must hold, for each id g, the first row whose id is >= g (so
@@ -79,16 +88,16 @@ def segment_reduce(rows: torch.Tensor, gid: torch.Tensor, bounds: torch.Tensor):
     return _segment_reduce_cuda(rows, gid, bounds)
 
 
-def _check_rows(what, rows):
+def _check_rows(what, rows, counts=(ROWS,)):
     if rows.dtype != torch.float32 or rows.dim() != 2 or not rows.is_contiguous() \
-            or rows.shape[0] != ROWS:
-        raise ValueError(f"{what}: rows must be contiguous float32 [{ROWS}, R], got "
-                         f"{rows.dtype} {tuple(rows.shape)}")
+            or rows.shape[0] not in counts:
+        raise ValueError(f"{what}: rows must be contiguous float32 [K, R] with K in "
+                         f"{counts}, got {rows.dtype} {tuple(rows.shape)}")
 
 
 def _segment_reduce_cuda(rows, gid, bounds):
     global LAUNCHES
-    _check_rows("segment_reduce", rows)
+    _check_rows("segment_reduce", rows, DENSE_ROWS)
     n = bounds.shape[0] - 1
     for name, t, size in (("gid", gid, rows.shape[1]), ("bounds", bounds, n + 1)):
         if t.device != rows.device or t.dtype != torch.int32 or t.shape != (size,) \
@@ -230,15 +239,21 @@ def _reduce_ranges(rows, lo, hi, rps: int, m: int):
     """Launch the kernel: out[:, j] = sum over b < rps of rows[:, lo[b,
     j]:hi[b, j]] ([rps, m] int32 each, row offsets into ``rows``; each
     [rps, m] block contiguous in memory): the dense kernel on explicit
-    runs. Counts no launch: the dense wrapper does."""
-    out = torch.empty((ROWS, m), dtype=torch.float32, device=rows.device)
+    runs, over ``rows``' 9 rows (the entry it always had) or 18. Counts no
+    launch: the dense wrapper does."""
+    k = rows.shape[0]
+    out = torch.empty((k, m), dtype=torch.float32, device=rows.device)
     if m == 0:
         return out
     if lo.shape != (rps, m) or hi.shape != (rps, m):
         raise ValueError(f"segment reduce ranges: lo and hi must be [{rps}, {m}]")
     if not (lo.is_contiguous() and hi.is_contiguous()):
         raise ValueError("segment reduce ranges: lo and hi must be contiguous")
-    err = _kernel()(rows.data_ptr(), rows.stride(0), lo.data_ptr(), hi.data_ptr(), rps, m,
-                    out.data_ptr(), _build.stream_ptr(rows.device))
+    if k == ROWS:
+        err = _kernel()(rows.data_ptr(), rows.stride(0), lo.data_ptr(), hi.data_ptr(), rps, m,
+                        out.data_ptr(), _build.stream_ptr(rows.device))
+    else:
+        err = _rows_kernel()(rows.data_ptr(), rows.stride(0), lo.data_ptr(), hi.data_ptr(),
+                             rps, m, k, out.data_ptr(), _build.stream_ptr(rows.device))
     _build.check(err, "segment reduce kernel")
     return out

@@ -25,11 +25,11 @@ import torch
 from tpusplat_torch import trace
 from tpusplat_torch.compiled import compile_step
 from tpusplat_torch.config import RenderConfig
-from tpusplat_torch.ops import validate
+from tpusplat_torch.ops import surfel, validate
 from tpusplat_torch.ops.binning import bin_and_sort
 from tpusplat_torch.ops.preprocess import preprocess
 from tpusplat_torch.ops.rasterize import rasterize
-from tpusplat_torch.types import Camera, GaussianParams
+from tpusplat_torch.types import Camera, GaussianParams, SurfelParams
 
 
 def _finish_aux(aux: dict, params: GaussianParams, pg, binned, img, cfg: RenderConfig):
@@ -49,7 +49,13 @@ def render_stages(params: GaussianParams, camera: Camera, cfg: RenderConfig):
     transmittance, capacity_overflow (nonzero means grow the capacity),
     tile_overflow (plain path only), gauss_overflow, num_instances,
     max_tile_count, visible and radius; with ``cfg.debug_checks`` also
-    ``debug``, the validation counters (0-d int32 tensors)."""
+    ``debug``, the validation counters (0-d int32 tensors).
+
+    A surfel scene (``SurfelParams``) takes the surfel pipeline
+    (:func:`tpusplat_torch.ops.surfel.render_stages2d`), whose aux adds its
+    alpha, depth_sum, normal and distortion maps and has no ``debug``."""
+    if isinstance(params, SurfelParams):
+        return surfel.render_stages2d(params, camera, cfg)
     dev = params.device
     trace.stage("preprocess", dev)
     pg = preprocess(params, camera, cfg)

@@ -18,6 +18,13 @@ eval render's, never split its sequence. The orders:
   are stamped in the backward pass (:func:`grad_stage`), when the gradient
   of the image and of the gathered table are ready; ``writeback`` precedes
   the copy of the donated state into its buffers;
+- a surfel scene's training step (2D Gaussian Splatting): preprocess,
+  binning, blend, loss, regularize, regularize_bwd, loss, blend_bwd,
+  preprocess_bwd, adam, writeback, end. ``regularize`` begins the
+  regularizers' forward after the photometric loss's, ``regularize_bwd``
+  their backward, which autograd runs first; ``loss`` is stamped again where
+  the photometric loss's backward begins, so that the loss stage holds what
+  it holds in a Gaussian step;
 - a densify round: densify, end.
 
 :func:`read` synchronises once and returns the ring as :class:`Stamps`;
@@ -67,7 +74,7 @@ from tpusplat_torch.ops import _build
 enabled = True
 
 STAGES = ("preprocess", "binning", "blend", "loss", "blend_bwd", "preprocess_bwd", "adam",
-          "writeback", "end", "densify")
+          "writeback", "end", "densify", "regularize", "regularize_bwd")
 _STAGE_ID = {name: i for i, name in enumerate(STAGES)}
 RING = 1 << 16  # stamps the device ring and the host ring hold (kRing in csrc/stamp.cu)
 SPAN_RING = 1 << 16  # spans the host ring holds

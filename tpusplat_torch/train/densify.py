@@ -41,7 +41,7 @@ from tpusplat_torch.compiled import compile_step
 from tpusplat_torch.ops.activations import normalize_quat
 from tpusplat_torch.train import prng
 from tpusplat_torch.train.step import TrainState
-from tpusplat_torch.types import GaussianParams
+from tpusplat_torch.types import GaussianParams, SurfelParams
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +94,14 @@ def _log_f32(x: float) -> float:
     return f32(math.log(f32(x)))
 
 
+def refuse_surfels(state: TrainState) -> None:
+    """Raise ``TypeError`` for a surfel scene: 2D Gaussian Splatting's
+    densification (its clone and split of disks) is not ported."""
+    if isinstance(state.params, SurfelParams):
+        raise TypeError("densify: a surfel scene (SurfelParams) is not densified; "
+                        "train it with densification off (--densify-every 0)")
+
+
 @torch.no_grad()
 def densify_and_prune(
     state: TrainState,
@@ -108,6 +116,7 @@ def densify_and_prune(
     ([N, 3]) are the two standard-normal split draws; when not given, they
     are ``jax.random.normal`` of ``key`` and of ``fold_in(key, 1)``, on the
     state's device."""
+    refuse_surfels(state)
     params = state.params
     n = params.num_gaussians
     dev = params.device
@@ -197,6 +206,7 @@ def _round(state: TrainState, key: torch.Tensor, dcfg: DensifyConfig,
            scene_extent: float) -> TrainState:
     # The round's stamp, then the module's densify_and_prune, looked up at
     # each call.
+    refuse_surfels(state)
     trace.stage("densify", state.params.device)
     return densify_and_prune(state, key, dcfg, scene_extent)
 

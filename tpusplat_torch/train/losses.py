@@ -80,3 +80,43 @@ def gs_loss(img: torch.Tensor, target: torch.Tensor, ssim_weight: float = 0.2) -
     return (1.0 - ssim_weight) * l1_loss(img, target) + ssim_weight * (
         1.0 - ssim(img, target)
     )
+
+
+# -- 2D Gaussian Splatting's regularizers (Huang et al. 2024, arXiv:2403.17888) --
+
+# The weights of a surfel scene's two regularizers beside the photometric
+# loss: the depth distortion's and the normal consistency's, the paper's for
+# unbounded scenes, both active as after its densification.
+LAMBDA_DIST = 100.0
+LAMBDA_NORMAL = 0.05
+
+
+def depth_normals(alpha: torch.Tensor, depth_sum: torch.Tensor, fx, fy, cx, cy) -> torch.Tensor:
+    """[H, W, 3] unit normals of the expected depth ``depth_sum / alpha`` (0
+    where ``alpha`` is 0), unprojected to camera-space points ``P`` with the
+    intrinsics: ``normalize((P[y+1] - P[y-1]) x (P[x+1] - P[x-1]))`` on the
+    interior pixels, 0 on the border. The order of the cross product orients
+    them as the surfels' normals face the camera: a fronto-parallel disk
+    gives its own normal."""
+    h, w = alpha.shape
+    dev, dt = alpha.device, alpha.dtype
+    pos = alpha > 0
+    z = torch.where(pos, depth_sum / torch.where(pos, alpha, torch.ones_like(alpha)),
+                    torch.zeros_like(alpha))
+    xs = (torch.arange(w, device=dev, dtype=dt) - cx) / fx
+    ys = (torch.arange(h, device=dev, dtype=dt) - cy) / fy
+    pts = torch.stack([z * xs[None, :], z * ys[:, None], z], dim=-1)
+    dx = pts[1:-1, 2:] - pts[1:-1, :-2]
+    dy = pts[2:, 1:-1] - pts[:-2, 1:-1]
+    n = F.normalize(torch.linalg.cross(dy, dx, dim=-1), dim=-1)
+    return F.pad(n, (0, 0, 1, 1, 1, 1))
+
+
+def surfel_regularizers(maps: dict, fx, fy, cx, cy):
+    """(mean depth distortion, mean normal consistency) of a surfel frame's
+    maps (``ops.surfel.split_maps``): ``L_n = A - N . N~``, which is
+    ``sum_i w_i (1 - n_i . N~)``, with ``N~`` the normals of the expected
+    depth (:func:`depth_normals`)."""
+    n_depth = depth_normals(maps["alpha"], maps["depth_sum"], fx, fy, cx, cy)
+    l_n = maps["alpha"] - (maps["normal"] * n_depth).sum(-1)
+    return maps["distortion"].mean(), l_n.mean()

@@ -30,10 +30,12 @@ import torch
 from tpusplat_torch import trace
 from tpusplat_torch.compiled import compile_step, donated
 from tpusplat_torch.config import RenderConfig
+from tpusplat_torch.ops import surfel
 from tpusplat_torch.render import render_stages
 from tpusplat_torch.train.adam import fused_adam
-from tpusplat_torch.train.losses import gs_loss
-from tpusplat_torch.types import Camera, GaussianParams
+from tpusplat_torch.train import losses
+from tpusplat_torch.train.losses import gs_loss, surfel_regularizers
+from tpusplat_torch.types import Camera, GaussianParams, SurfelParams
 
 TRAINABLE = ("means", "log_scales", "quats", "opacities", "sh")
 
@@ -43,8 +45,10 @@ def split_trainable(params: GaussianParams):
     return {f: getattr(params, f) for f in TRAINABLE}, params.alive
 
 
-def merge_trainable(trainable: dict, alive: torch.Tensor) -> GaussianParams:
-    return GaussianParams(alive=alive, **trainable)
+def merge_trainable(trainable: dict, alive: torch.Tensor, kind=GaussianParams):
+    """The parameters of type ``kind`` (``GaussianParams`` or
+    ``SurfelParams``) from their trainable tensors and alive mask."""
+    return kind(alive=alive, **trainable)
 
 
 # optax.adam's decay rates, and the eps of the JAX package's make_optimizer.
@@ -157,13 +161,41 @@ def step_forward(state: TrainState, camera: Camera, target: torch.Tensor, cfg: R
                  ssim_weight: float = 0.2):
     """Render the state's parameters with gradients on and take the loss.
     Returns (loss, aux, leaves): ``leaves`` are the trainable tensors the
-    gradients are taken against."""
+    gradients are taken against. A surfel scene's loss adds its two
+    regularizers (:func:`surfel_forward`)."""
     trainable, alive = split_trainable(state.params)
     leaves = {k: v.detach().requires_grad_(True) for k, v in trainable.items()}
-    img, aux = render_stages(merge_trainable(leaves, alive), camera, cfg)
+    params = merge_trainable(leaves, alive, type(state.params))
+    if isinstance(params, SurfelParams):
+        loss, aux = surfel_forward(params, camera, target, cfg, ssim_weight)
+        return loss, aux, leaves
+    img, aux = render_stages(params, camera, cfg)
     trace.stage("loss", img.device)
     img = trace.grad_stage(img, "blend_bwd")
     return gs_loss(img, target, ssim_weight), aux, leaves
+
+
+def surfel_forward(params: SurfelParams, camera: Camera, target: torch.Tensor,
+                   cfg: RenderConfig, ssim_weight: float):
+    """A surfel frame's loss: ``gs_loss`` of its colour, plus
+    ``losses.LAMBDA_DIST`` times the mean depth distortion and
+    ``losses.LAMBDA_NORMAL`` times the mean normal consistency (2D Gaussian
+    Splatting's). Returns
+    (loss, aux). Stamps ``loss``, then ``regularize`` before the
+    regularizers; in the backward pass ``regularize_bwd`` where theirs
+    begins (autograd runs it first: its nodes are the newest), ``loss``
+    again where the photometric loss's begins, and ``blend_bwd`` once the
+    gradient of every map is ready."""
+    maps, aux = surfel.render_maps(params, camera, cfg)
+    dev = maps.device
+    trace.stage("loss", dev)
+    maps = trace.grad_stage(maps, "blend_bwd")
+    photo = trace.grad_stage(gs_loss(maps[..., :3], target, ssim_weight), "loss")
+    trace.stage("regularize", dev)
+    dist, normal = surfel_regularizers(surfel.split_maps(maps), *surfel.intrinsics(camera))
+    reg = trace.grad_stage(losses.LAMBDA_DIST * dist + losses.LAMBDA_NORMAL * normal,
+                           "regularize_bwd")
+    return photo + reg, aux
 
 
 def step_backward(loss: torch.Tensor, leaves: dict) -> dict:
@@ -209,7 +241,7 @@ def apply_gradients(state: TrainState, loss, aux: dict, grads: dict, optimizer: 
     visible = aux["visible"].to(torch.float32)
     radius = aux["radius"].detach()
     new_state = TrainState(
-        params=merge_trainable(params, alive),
+        params=merge_trainable(params, alive, type(state.params)),
         mu=mu,
         nu=nu,
         count=keep(count, state.count),
@@ -231,6 +263,8 @@ def apply_gradients(state: TrainState, loss, aux: dict, grads: dict, optimizer: 
 def train_step(state: TrainState, camera: Camera, target: torch.Tensor, cfg: RenderConfig,
                optimizer: Optimizer, ssim_weight: float = 0.2):
     """One optimization step on a single camera. Returns (state, metrics).
+    A state of ``SurfelParams`` trains the surfels (2D Gaussian
+    Splatting), its loss with the two regularizers.
 
     Forward and backward run on the parameters' device: on the card through
     the preprocess forward and backward, emission, forward-blend,

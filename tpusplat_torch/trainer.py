@@ -24,6 +24,11 @@ package's ``load_checkpoint`` reads it, and the port's reads the file of
 ``apps/train.py --ckpt``. ``TPUSPLAT_*`` environment variables apply under
 the flags.
 
+``--surfels`` trains 2D Gaussian surfels (``types.SurfelParams``, 2D
+Gaussian Splatting): the same loop and compiled step, the scene's type
+routing the render and the loss (with its depth distortion and normal
+consistency); densification, ``--mesh`` and ``--ckpt`` are refused with it.
+
 ``--mesh DATAxTILE`` trains over the tile-sharded path
 (:mod:`tpusplat_torch.parallel.sharded`), one process per rank, each step on
 DATA cameras; ``--overlap`` takes the overlap-ready step. Launch it as
@@ -116,6 +121,10 @@ def main(argv=None) -> dict:
     p.add_argument("--watchdog-secs", type=float, default=0.0,
                    help="stall detector: exit(42) with stack dumps if no step completes "
                         "for this long (0 = off); must exceed the first step's time")
+    p.add_argument("--surfels", action="store_true",
+                   help="train 2D Gaussian surfels (2D Gaussian Splatting: the ray-splat "
+                        "blend, its depth distortion and normal consistency) instead of "
+                        "3D Gaussians; needs --densify-every 0 and no --mesh or --ckpt")
     p.add_argument("--xla", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     # Argument checks up front, before any data is read.
@@ -126,6 +135,9 @@ def main(argv=None) -> dict:
         p.error("--holdout must be >= 2 (1 would hold out every view)")
     if args.ckpt is not None and not args.ckpt.endswith(".npz"):
         p.error("--ckpt takes a .npz path (the directory form is Orbax, a JAX library)")
+    if args.surfels and (args.densify_every or args.mesh or args.ckpt):
+        p.error("--surfels trains without densification (--densify-every 0), on one card "
+                "(no --mesh) and writes no checkpoint (the JAX layout holds 3D Gaussians)")
     from tpusplat_torch.parallel.mesh import mesh_dims_arg
 
     mesh_dims = mesh_dims_arg(p, args.mesh)
@@ -165,6 +177,7 @@ def _train(args, dev, mesh) -> dict:
     from tpusplat_torch.train.step import (compile_train_step, create_train_state,
                                            make_optimizer)
     from tpusplat_torch.train.watchdog import Watchdog
+    from tpusplat_torch.types import SurfelParams
 
     lead = mesh is None or mesh.rank == 0
     tile = 1 if mesh is None else mesh.tile
@@ -181,6 +194,8 @@ def _train(args, dev, mesh) -> dict:
     # slots up to the capacity ---
     init = random_scene(_capacity(args, colmap_init, tile), seed=1, sh_degree=args.sh_degree,
                         extent=3.0, scale_range=(0.05, 0.25), device=dev)
+    if args.surfels:  # the draws' first two scales become the disks'
+        init = SurfelParams.from_gaussians(init)
     cap = init.num_gaussians
     alive = torch.zeros(cap, dtype=torch.bool, device=dev)
     if colmap_init is None:
@@ -196,7 +211,9 @@ def _train(args, dev, mesh) -> dict:
         for f in ("means", "log_scales", "quats", "opacities", "sh"):
             out = getattr(init, f).clone()
             v = getattr(colmap_init, f)
-            out[:m] = v[:m, :k_sh] if out.dim() == 3 else v[:m]
+            # SH to this run's coefficients, scales to a surfel's two.
+            out[:m] = v[:m, :k_sh] if out.dim() == 3 else v[:m, :out.shape[1]] \
+                if out.dim() == 2 else v[:m]
             seeded[f] = out
         init = dataclasses.replace(init, alive=alive, **seeded)
         _log(colmap_points=colmap_init.num_gaussians, seeded=m, capacity=cap)

@@ -81,6 +81,47 @@ class GaussianParams:
 
 
 @dataclasses.dataclass
+class SurfelParams:
+    """Raw parameters of 2D Gaussian surfels (2D Gaussian Splatting, Huang
+    et al. 2024): oriented planar disks. The fields are
+    :class:`GaussianParams`' but ``log_scales``, which holds the two
+    tangent axes' scales:
+      means:      [N, 3]     disk centres
+      log_scales: [N, 2]     log of the scales along the tangent axes
+                             t_u, t_v (columns 0 and 1 of R(quats))
+      quats:      [N, 4]     (w, x, y, z); column 2 of R is the disk's axis
+      opacities:  [N]        opacity logits
+      sh:         [N, 16, 3] SH coefficients
+      alive:      [N] bool
+    The scene's type routes every entry point (``render_stages``,
+    ``train_step``) to the surfel pipeline (:mod:`tpusplat_torch.ops.surfel`).
+    """
+
+    means: torch.Tensor
+    log_scales: torch.Tensor
+    quats: torch.Tensor
+    opacities: torch.Tensor
+    sh: torch.Tensor
+    alive: torch.Tensor
+
+    @property
+    def num_gaussians(self) -> int:
+        return self.means.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.means.device
+
+    @classmethod
+    def from_gaussians(cls, params: GaussianParams) -> "SurfelParams":
+        """The surfels of a Gaussian scene: its first two scales become the
+        disks' (a random scene's draws serve either primitive)."""
+        return cls(means=params.means, log_scales=params.log_scales[:, :2].contiguous(),
+                   quats=params.quats, opacities=params.opacities, sh=params.sh,
+                   alive=params.alive)
+
+
+@dataclasses.dataclass
 class Camera:
     """A camera in the reference's shader convention (see
     :mod:`tpusplat_torch.camera`). ``view``/``proj`` are [4, 4] float32,
